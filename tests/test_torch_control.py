@@ -1,0 +1,156 @@
+"""The port's copies of the control-plane modules against the originals,
+the port's import boundary, and its device rule."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import heartbeat as jhb  # noqa: E402
+from repro.core import variants as jvariants  # noqa: E402
+from repro import configs as jconfigs  # noqa: E402
+from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.core import heartbeat as thb  # noqa: E402
+from repro_torch.core import variants as tvariants  # noqa: E402
+from repro_torch.serving.router import Router  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+CFG_FIELDS = ("name", "num_layers", "d_model", "num_heads", "num_kv_heads",
+              "head_dim", "d_ff", "vocab_size", "quant_bits", "width_mult",
+              "depth_mult", "param_dtype", "activation_dtype")
+
+
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+def test_build_ladder_matches_jax(which):
+    get_j = jconfigs.get_config if which == "CONFIG" else jconfigs.get_smoke
+    get_t = tconfigs.get_config if which == "CONFIG" else tconfigs.get_smoke
+    lj = jvariants.build_ladder(get_j("qwen2.5-3b"))
+    lt = tvariants.build_ladder(get_t("qwen2.5-3b"))
+    assert [v.name for v in lj] == [v.name for v in lt]
+    for a, b in zip(lj, lt):
+        assert (a.mem_bytes, a.compute, a.accuracy, a.quant_bits,
+                a.width_mult, a.depth_mult) == \
+               (b.mem_bytes, b.compute, b.accuracy, b.quant_bits,
+                b.width_mult, b.depth_mult)
+        for f in CFG_FIELDS:
+            assert getattr(a.config, f) == getattr(b.config, f), f
+        assert a.config.param_count() == b.config.param_count()
+    assert tvariants.LADDER_STEPS == jvariants.LADDER_STEPS
+
+
+def test_application_picks_variants_like_jax():
+    lj = jvariants.build_ladder(jconfigs.get_config("qwen2.5-3b"))
+    lt = tvariants.build_ladder(tconfigs.get_config("qwen2.5-3b"))
+    aj = jvariants.Application(id="a", family="qwen2.5-3b", variants=lj)
+    at = tvariants.Application(id="a", family="qwen2.5-3b", variants=lt)
+    assert (aj.full.name, aj.smallest.name) == (at.full.name, at.smallest.name)
+    assert (aj.demand_matrix() == at.demand_matrix()).all()
+
+
+def test_failure_detector_matches_jax():
+    """Same beats and sweeps on a simulated clock -> same detections."""
+    script = [("beat", "s1"), ("beat", "s2"), ("adv", 0.03),
+              ("beat", "s1"), ("adv", 0.015), ("sweep",), ("adv", 0.03),
+              ("sweep",), ("sweep",), ("mark", "s1"), ("revive", "s2"),
+              ("adv", 0.05), ("sweep",), ("dereg", "s2"), ("beat", "s3"),
+              ("adv", 1.0), ("sweep",)]
+    results = []
+    for mod in (jhb, thb):
+        clock = mod.SimClock()
+        det = mod.FailureDetector(clock, interval=0.020, miss_count=2)
+        seen = []
+        for op in script:
+            if op[0] == "beat":
+                det.beat(op[1])
+            elif op[0] == "adv":
+                clock.advance(op[1])
+            elif op[0] == "sweep":
+                seen.append(sorted(det.sweep()))
+            elif op[0] == "mark":
+                det.mark_failed(op[1])
+            elif op[0] == "revive":
+                det.revive(op[1])
+            elif op[0] == "dereg":
+                det.deregister(op[1])
+        seen.append(sorted(det.failed))
+        seen.append(det.detection_latency_bound())
+        results.append(seen)
+    assert results[0] == results[1]
+    assert results[1][:3] == [["s2"], ["s1"], []]
+
+
+def test_router_epoch_and_push():
+    r = Router()
+    seen = []
+    r.subscribe(lambda a, s, v: seen.append((a, s, v)))
+    r.set_route("app1", "s1", "m:full")
+    assert r.lookup("app1") == ("s1", "m:full")
+    e0 = r.epoch
+    r.set_route("app1", "s2", "m:w050")
+    assert r.epoch == e0 + 1
+    assert seen[-1] == ("app1", "s2", "m:w050")
+    r.set_backup("app1", "s3", "m:w025")
+    assert r.lookup_backup("app1") == ("s3", "m:w025")
+    assert r.epoch == e0 + 1                  # backups do not bump
+    assert r.drop_route("app1") == e0 + 2
+    assert seen[-1] == ("app1", None, None)
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = (
+        "import pkgutil, sys, importlib, repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n"
+        "print(sum(m.startswith('repro_torch') for m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule is moot")
+    from repro_torch.device import generator_for, resolve_device
+    from repro_torch.models import model as MDL
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.server import WorkerServer
+    cfg = tconfigs.get_smoke("qwen2.5-3b")
+    cpu = torch.device("cpu")
+    det = thb.FailureDetector(thb.WallClock())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MDL.init_params(generator_for(cpu, 0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MDL.init_cache(cfg, 1, 8)
+    params = MDL.init_params(generator_for(cpu, 0), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InferenceEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WorkerServer("w", det)
+    assert resolve_device("cpu") == cpu
+
+
+def test_unported_archs_and_kinds_raise():
+    with pytest.raises(KeyError, match="ROADMAP"):
+        tconfigs.get_config("rwkv6-3b")
+    with pytest.raises(KeyError, match="unknown"):
+        tconfigs.get_config("nope")
+    from repro_torch.models import model as MDL
+    from repro_torch.device import generator_for
+    cfg = tconfigs.get_smoke("qwen2.5-3b")
+    gen = generator_for(torch.device("cpu"), 0)
+    for bad in (cfg.replace(block_pattern=("local",)),
+                cfg.replace(qk_norm=True),
+                cfg.replace(tie_embeddings=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MDL.init_params(gen, bad, device="cpu")
