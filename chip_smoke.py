@@ -7,20 +7,34 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
-1. build: both CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
-2. kernels: K1 (prefill flash attention) and K2 (decode attention)
-   against their plain PyTorch versions on the sweeps of
-   tests/test_kernels.py (f32 2e-5, bf16 2e-2) and at the main path's
-   bf16 shapes, timed beside the plain version and beside PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick the port never calls);
-3. model parity: qwen2.5-3b at full width, 2 layers, fp32 — prefill and
-   two decode steps on the card (kernels) against the CPU (plain path);
-4. serve and fail over: worker A serves qwen2.5-3b:full (36 layers, bf16)
-   to 4 requests, its tokens are held against the model's own
-   prefill/decode, A is killed, the heartbeat detector reports it, the
-   router moves the app to worker B's warm qwen2.5-3b:w050 and B serves
-   the same requests. Kernel launch counters are zeroed before and read
-   after each serving run.
+1. build: the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+   one ``nvcc`` each, all at once;
+2. kernels: each against its plain PyTorch version on the card —
+   K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
+   tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
+   and K4 (WKV-6, f32 5e-4, bf16 2e-2) on the sweeps of
+   tests/test_kernels.py, and each at the shapes of every ladder rung that
+   phase 4 serves (heads, KV heads, head_dim and window of each attention
+   rung, one prompt where recurrentgemma-2b's window binds; the LRU width
+   and the WKV heads of each recurrent rung; from a nonzero state). The
+   main-path shapes are timed in bf16 beside the plain version, the bound,
+   and, for K1/K2, PyTorch's ``scaled_dot_product_attention`` (a yardstick
+   the port never calls);
+3. model parity, fp32, card (kernels) against CPU (plain path): qwen2.5-3b
+   (2 layers), recurrentgemma-2b (one (rglru, rglru, local) cycle plus an
+   (rglru, rglru) tail, a 2100-token prompt so the local layer's window
+   binds and its ring buffer wraps) and rwkv6-3b (2 layers, 250 tokens),
+   all at full width, prefill and three decode steps;
+4. serve and fail over, for each of qwen2.5-3b, recurrentgemma-2b and
+   rwkv6-3b in turn: worker A serves the ladder's ``:full`` rung (bf16) to
+   4 requests, its tokens are held against the model's own prefill/decode,
+   a fifth request on a reused slot against a fresh engine, A is killed,
+   the heartbeat detector reports it, the router moves the app to worker
+   B's warm ``:w050`` and B serves the same requests, its tokens held
+   against the model's own prefill/decode on B's params. Kernel launch
+   counters are zeroed before and read after each serving run and must
+   show one launch per layer of each kind per prefill and per decode step.
+   Each arch is unloaded before the next one loads.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -29,6 +43,7 @@ lists every kernel with its launches, error, times and bound.
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -42,12 +57,17 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+DEV = torch.device("cuda")
 
-# H100 SXM data-sheet peaks (dense): HBM rate and bf16 tensor-core rate;
-# the main path's kernels run in bf16
+# H100 SXM data-sheet peaks (dense): HBM rate, bf16 tensor-core rate (K1
+# and K2 at the main path's bf16 shapes) and fp32 rate outside the tensor
+# cores (K3 and K4 compute in fp32 FMAs)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SCAN_ATOL = 1e-5           # K3, tests/test_kernels.py:77-78
+WKV_ATOL = 5e-4            # K4 in f32, tests/test_kernels.py:99-100
 LOGIT_ATOL = 1e-3          # fp32 model parity, card vs CPU
 SEED = 0
 
@@ -62,26 +82,52 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (2, 4, 1, 32, 64, 16),
     (1, 16, 16, 128, 300, 0),
 ]
-# (variant, H, KVH) of the qwen2.5-3b ladder rungs served on the main path
-MAIN_HEADS = [("full", 16, 2), ("w075", 12, 2), ("w050", 8, 1)]
+SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256)]    # :64-68
+WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8)]  # :82-86
+# ladder rungs whose kernel shapes phase 2 checks and times: the :full and
+# :w050 that phase 4 serves, and qwen2.5-3b's w075 as a reference row
+RUNGS = {"qwen2.5-3b": ("full", "w075", "w050"),
+         "recurrentgemma-2b": ("full", "w050"),
+         "rwkv6-3b": ("full", "w050")}
 PREFILL_LENS = (128, 256, 512)
+BINDING_LEN = 2100          # a prompt past recurrentgemma-2b's window 2048
 SLOTS, MAX_LEN, NEW_TOKENS = 4, 512, 32
-# name -> (source, TPU kernel it replaces, headline shape of the JSON line:
-# prefill at the top of the main path's prompt range, decode over 4 slots)
+DECODE_LENS = [97, 161, 288, 512]
+ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b")
+# name -> (source, TPU kernel it replaces, headline row of the JSON line)
 KERNELS = {
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:29",
-        ("full", 256)),
+        "qwen2.5-3b full S=256"),
     "decode_attention": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:27",
-        ("full", MAX_LEN)),
+        "qwen2.5-3b full decode"),
+    "rglru_scan": (
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:25",
+        "recurrentgemma-2b full S=256"),
+    "rwkv6_scan": (
+        "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
+        "rwkv6-3b full S=256"),
 }
+NO_LIBRARY = "none: no single PyTorch call computes this recurrence"
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ops_modules():
+    """The four kernels' wrapper modules, by kernel name."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rglru_scan import ops as rg
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    return {"flash_attention": fa, "decode_attention": dec,
+            "rglru_scan": rg, "rwkv6_scan": wkv}
 
 
 def eager_ms(fn, n=30, warmup=5):
@@ -128,35 +174,88 @@ def graph_ms(fn, reps=20, n=20, warmup=3):
         e.record()
         e.synchronize()
         out.append(s.elapsed_time(e) / reps)
+    del graph
     return statistics.median(out)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak):
     """Least time in ms for the card to move ``nbytes`` and do ``flops``
-    bf16 operations, and which of the two bounds it."""
+    operations at ``peak`` per second, and which of the two bounds it."""
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_BF16_FLOPS
+    t_ops = flops / peak
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else
             "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def timed_row(shape, e, kern, plain, lib, n_bytes, flops, peak,
+              plain_reps=20):
+    """Device ms of the kernel, its plain version and the library call
+    (None when there is none), beside the bound for these inputs."""
+    b_ms, b_by = bound(n_bytes, flops, peak)
+    return dict(shape=shape, max_abs_err=e, ms=graph_ms(kern),
+                eager_ms=eager_ms(kern),
+                plain_ms=graph_ms(plain, reps=plain_reps),
+                library_ms=None if lib is None else graph_ms(lib),
+                bound_ms=b_ms, bound_by=b_by,
+                peak=("bf16 tensor core" if peak == PEAK_BF16_FLOPS
+                      else "fp32 non-tensor"))
 
 
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def rung_shapes():
+    """Each kernel's shapes on the rungs of ``RUNGS``, from the ladder the
+    workers load: ``{kernel: [(tag, args), ...]}`` with args (H, KVH, hd,
+    window) for K1/K2, the LRU width for K3 and (heads, head size) for K4."""
+    from repro_torch import configs
+    from repro_torch.core.variants import build_ladder
+
+    out = {k: [] for k in KERNELS}
+    for arch, rungs in RUNGS.items():
+        ladder = {v.name: v.config
+                  for v in build_ladder(configs.get_config(arch))}
+        for rung in rungs:
+            c, tag = ladder[f"{arch}:{rung}"], f"{arch} {rung}"
+            kinds = set(c.layer_kinds())
+            if kinds & {"global", "local"}:
+                window = c.window_size if "local" in kinds else 0
+                args = (c.num_heads, c.num_kv_heads, c.head_dim, window)
+                out["flash_attention"].append((tag, args))
+                out["decode_attention"].append((tag, args))
+            if "rglru" in kinds:
+                out["rglru_scan"].append((tag, c.rnn_width))
+            if "rwkv" in kinds:
+                hs = c.rwkv_head_size
+                out["rwkv6_scan"].append((tag, (c.d_model // hs, hs)))
+    return out
+
+
 def phase_kernels():
-    from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.decode_attention.ref import \
         decode_attention_ref as dec_ref
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_ref as fa_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
-    dev = "cuda"
+    ops = ops_modules()
+    fa_ops, dec_ops = ops["flash_attention"], ops["decode_attention"]
+    rg_ops, wkv_ops = ops["rglru_scan"], ops["rwkv6_scan"]
+    dev = DEV
     g = torch.Generator(device=dev).manual_seed(SEED)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-    def rnd(shape, dt):
+    def rnd(shape, dt=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
     def flash_plain(q, k, v, causal, window):
@@ -168,93 +267,184 @@ def phase_kernels():
         return dec_ref(q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2),
                        lens, window=window)[:, None]
 
-    def err(a, b):
-        return float((a.float() - b.float()).abs().max())
+    def check(name, e, tol, what):
+        log(f"  {name} {what}: max_abs_err {e:.3g}")
+        if not e < tol:
+            raise AssertionError(f"{name} {what}: err {e} >= {tol}")
 
+    def scan_inputs(B, S, W):
+        a = torch.sigmoid(rnd((B, S, W))) * 0.2 + 0.8
+        return a, rnd((B, S, W)) * 0.1, rnd((B, W))
+
+    def wkv_inputs(B, NH, S, hs, dt):
+        r, k, v = (rnd((B, S, NH, hs), dt) for _ in range(3))
+        # lw spread over [-3, -0.05], as rwkv6-3b's decay_base reaches
+        lw = -torch.exp(torch.empty((B, S, NH, hs), device=dev).uniform_(
+            float(np.log(0.05)), float(np.log(3.0)), generator=g))
+        return r, k, v, lw, rnd((NH, hs)) * 0.3, rnd((B, NH, hs, hs)) * 0.3
+
+    shapes = rung_shapes()
+    flash_rungs = [(1, S, S, H, KVH, hd, True, window)
+                   for _, (H, KVH, hd, window) in shapes["flash_attention"]
+                   for S in (256,) + ((BINDING_LEN,) if window else ())]
+    decode_rungs = [(SLOTS, H, KVH, hd, MAX_LEN, 0)
+                    for _, (H, KVH, hd, _w) in shapes["decode_attention"]]
+    wkv_rungs = [(B, NH, S, hs) for _, (NH, hs) in shapes["rwkv6_scan"]
+                 for B, S in ((1, 256), (SLOTS, 1))]
+    scan_rungs = [(B, S, W) for _, W in shapes["rglru_scan"]
+                  for B, S in ((1, 256), (SLOTS, 1))]
+
+    # -- sweeps and every rung's shapes, both dtypes where the kernel takes
+    # them ------------------------------------------------------------------
     for name, dt in dts.items():
-        for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP:
+        for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP + \
+                flash_rungs:
             q, k, v = (rnd((B, Sq, H, hd), dt), rnd((B, Skv, KVH, hd), dt),
                        rnd((B, Skv, KVH, hd), dt))
-            e = err(fa_ops.flash_attention(q, k, v, causal=causal,
-                                           window=window),
-                    flash_plain(q, k, v, causal, window))
-            log(f"  sweep flash_attention {name} B={B} S={Sq} H={H} "
-                f"KVH={KVH} hd={hd} causal={causal} window={window}: "
-                f"max_abs_err {e:.3g}")
-            if not e < ATOL[name]:
-                raise AssertionError(f"flash_attention sweep err {e}")
-        for B, H, KVH, hd, Smax, window in DECODE_SWEEP:
+            check("flash_attention", err(
+                fa_ops.flash_attention(q, k, v, causal=causal,
+                                       window=window),
+                flash_plain(q, k, v, causal, window)), ATOL[name],
+                f"{name} B={B} S={Sq} H={H} KVH={KVH} hd={hd} "
+                f"causal={causal} window={window}")
+        for B, H, KVH, hd, Smax, window in DECODE_SWEEP + decode_rungs:
             q, kc, vc = (rnd((B, 1, H, hd), dt), rnd((B, Smax, KVH, hd), dt),
                          rnd((B, Smax, KVH, hd), dt))
             lens = torch.randint(1, Smax + 1, (B,), generator=g, device=dev,
                                  dtype=torch.int32)
-            e = err(dec_ops.decode_attention(q, kc, vc, lens, window=window),
-                    dec_plain(q, kc, vc, lens, window))
-            log(f"  sweep decode_attention {name} B={B} H={H} KVH={KVH} "
-                f"hd={hd} Smax={Smax} window={window}: max_abs_err {e:.3g}")
-            if not e < ATOL[name]:
-                raise AssertionError(f"decode_attention sweep err {e}")
+            check("decode_attention", err(
+                dec_ops.decode_attention(q, kc, vc, lens, window=window),
+                dec_plain(q, kc, vc, lens, window)), ATOL[name],
+                f"{name} B={B} H={H} KVH={KVH} hd={hd} Smax={Smax} "
+                f"window={window}")
+        for B, NH, S, hs in WKV_SWEEP + wkv_rungs:
+            r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, dt)
+            y_ref, s_ref = wkv6_ref(r, k, v, lw, u, s0)
+            state = s0.clone()
+            y, _ = wkv_ops.wkv6(r, k, v, lw, u, state, s_out=state)
+            tol = WKV_ATOL if name == "float32" else ATOL[name]
+            check("rwkv6_scan", max(err(y, y_ref), err(state, s_ref)), tol,
+                  f"{name} B={B} NH={NH} S={S} hs={hs} from a nonzero "
+                  "state")
+    for B, S, W in SCAN_SWEEP + scan_rungs:
+        a, b, h0 = scan_inputs(B, S, W)
+        h_ref, hl_ref = rglru_scan_ref(a, b, h0)
+        state = h0.clone()
+        h, _ = rg_ops.rglru_scan(a, b, state, h_last=state)
+        check("rglru_scan", max(err(h, h_ref), err(state, hl_ref)),
+              SCAN_ATOL, f"float32 B={B} S={S} W={W} from a nonzero h0")
 
-    # main-path shapes, bf16
-    bf16, hd = torch.bfloat16, 128
-    rows = {"flash_attention": {}, "decode_attention": {}}
-    for variant, H, KVH in MAIN_HEADS:
-        for S in PREFILL_LENS:
-            q, k, v = (rnd((1, S, H, hd), bf16), rnd((1, S, KVH, hd), bf16),
-                       rnd((1, S, KVH, hd), bf16))
-            out = fa_ops.flash_attention(q, k, v, causal=True)
-            e = err(out, flash_plain(q, k, v, True, 0))
-            if not e < ATOL["bfloat16"]:
-                raise AssertionError(f"flash_attention {variant} S={S}: {e}")
-            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), \
-                v.transpose(1, 2)
-            kern = functools.partial(fa_ops.flash_attention, q, k, v,
-                                     causal=True)
-            ms, eager = graph_ms(kern), eager_ms(kern)
-            plain = graph_ms(lambda: flash_plain(q, k, v, True, 0))
-            lib = graph_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-            flops = 4 * hd * H * S * (S + 1) // 2
-            b_ms, b_by = bound(nbytes, flops)
-            rows["flash_attention"][(variant, S)] = dict(
-                shape=f"q (1,{S},{H},{hd}) k/v (1,{S},{KVH},{hd}) bf16 "
-                      "causal", max_abs_err=e, ms=ms, eager_ms=eager,
-                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
-        # decode: 4 slots against a 512-token cache, ragged lens
+    # -- main-path shapes, timed --------------------------------------------
+    bf16 = torch.bfloat16
+    rows = {k: {} for k in KERNELS}
+
+    def flash_row(tag, H, KVH, hd, S, window):
+        q, k, v = (rnd((1, S, H, hd), bf16), rnd((1, S, KVH, hd), bf16),
+                   rnd((1, S, KVH, hd), bf16))
+        e = err(fa_ops.flash_attention(q, k, v, causal=True, window=window),
+                flash_plain(q, k, v, True, window))
+        if not e < ATOL["bfloat16"]:
+            raise AssertionError(f"flash_attention {tag}: {e}")
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        pos = torch.arange(S, device=dev)
+        band = pos[:, None] >= pos[None, :]
+        if window:
+            band &= pos[None, :] > pos[:, None] - window
+        # score pairs this causal (and windowed) attention needs
+        pairs = int(band.sum())
+        if window and window < S:
+            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                    vt, attn_mask=band, enable_gqa=True)
+        else:
+            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
+                                    vt, is_causal=True, enable_gqa=True)
+        rows["flash_attention"][tag] = timed_row(
+            f"q (1,{S},{H},{hd}) k/v (1,{S},{KVH},{hd}) bf16 causal"
+            + (f" window {window}" if window else ""), e,
+            functools.partial(fa_ops.flash_attention, q, k, v, causal=True,
+                              window=window),
+            lambda: flash_plain(q, k, v, True, window), lib,
+            nbytes(q, k, v, q), 4 * hd * H * pairs, PEAK_BF16_FLOPS)
+
+    def decode_row(tag, H, KVH, hd):
         q = rnd((SLOTS, 1, H, hd), bf16)
         kc, vc = (rnd((SLOTS, MAX_LEN, KVH, hd), bf16),
                   rnd((SLOTS, MAX_LEN, KVH, hd), bf16))
-        lens = torch.tensor([97, 161, 288, 512], dtype=torch.int32,
-                            device=dev)
-        out = dec_ops.decode_attention(q, kc, vc, lens)
-        e = err(out, dec_plain(q, kc, vc, lens, 0))
+        lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+        e = err(dec_ops.decode_attention(q, kc, vc, lens),
+                dec_plain(q, kc, vc, lens, 0))
         if not e < ATOL["bfloat16"]:
-            raise AssertionError(f"decode_attention {variant}: {e}")
+            raise AssertionError(f"decode_attention {tag}: {e}")
         mask = (torch.arange(MAX_LEN, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-        kern = functools.partial(dec_ops.decode_attention, q, kc, vc,
-                                 lens)
-        ms, eager = graph_ms(kern), eager_ms(kern)
-        plain = graph_ms(lambda: dec_plain(q, kc, vc, lens, 0))
-        lib = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True))
         n_keys = int(lens.sum())
-        nbytes = 2 * (2 * q.numel() + 2 * n_keys * KVH * hd) + 4 * SLOTS
-        flops = 4 * hd * H * n_keys
-        b_ms, b_by = bound(nbytes, flops)
-        rows["decode_attention"][(variant, MAX_LEN)] = dict(
-            shape=f"q ({SLOTS},1,{H},{hd}) cache ({SLOTS},{MAX_LEN},{KVH},"
-                  f"{hd}) bf16 lens {lens.tolist()}", max_abs_err=e, ms=ms,
-            eager_ms=eager, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib)
-    for kname, by_shape in rows.items():
-        for (variant, S), r in by_shape.items():
-            log(f"  {kname} {variant} [{r['shape']}]: device ms kernel "
-                f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library "
-                f"{r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
-                f"({r['bound_by']}); eager call {r['eager_ms']:.5f} ms; "
+        rows["decode_attention"][tag] = timed_row(
+            f"q ({SLOTS},1,{H},{hd}) cache ({SLOTS},{MAX_LEN},{KVH},{hd}) "
+            f"bf16 lens {DECODE_LENS}", e,
+            functools.partial(dec_ops.decode_attention, q, kc, vc, lens),
+            lambda: dec_plain(q, kc, vc, lens, 0),
+            functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                              attn_mask=mask, enable_gqa=True),
+            2 * (2 * q.numel() + 2 * n_keys * KVH * hd) + 4 * SLOTS,
+            4 * hd * H * n_keys, PEAK_BF16_FLOPS)
+
+    def scan_row(tag, B, S, W):
+        a, b, h0 = scan_inputs(B, S, W)
+        state = h0.clone()
+        h, _ = rg_ops.rglru_scan(a, b, state, h_last=state)
+        h_ref, hl_ref = rglru_scan_ref(a, b, h0)
+        e = max(err(h, h_ref), err(state, hl_ref))
+        if not e < SCAN_ATOL:
+            raise AssertionError(f"rglru_scan {tag}: {e}")
+        rows["rglru_scan"][tag] = timed_row(
+            f"a/b ({B},{S},{W}) f32, h0 ({B},{W})", e,
+            functools.partial(rg_ops.rglru_scan, a, b, state, h_last=state),
+            lambda: rglru_scan_ref(a, b, h0), None,
+            nbytes(a, b, h0, h, state), 2 * a.numel(), PEAK_FP32_FLOPS,
+            plain_reps=2)
+
+    def wkv_row(tag, B, S, NH, hs):
+        r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, bf16)
+        state = s0.clone()
+        y, _ = wkv_ops.wkv6(r, k, v, lw, u, state, s_out=state)
+        y_ref, s_ref = wkv6_ref(r, k, v, lw, u, s0)
+        e = max(err(y, y_ref), err(state, s_ref))
+        if not e < ATOL["bfloat16"]:
+            raise AssertionError(f"rwkv6_scan {tag}: {e}")
+        # what the function needs per (row, head, step): r.S (2 hs^2) and
+        # S = w*S + k v^T (3 hs^2), plus exp(lw), u*k, its dot with r and
+        # the bonus row (6 hs)
+        flops = B * S * NH * (5 * hs + 6) * hs
+        rows["rwkv6_scan"][tag] = timed_row(
+            f"r/k/v ({B},{S},{NH},{hs}) bf16, lw f32, state "
+            f"({B},{NH},{hs},{hs}) f32", e,
+            functools.partial(wkv_ops.wkv6, r, k, v, lw, u, state,
+                              s_out=state),
+            lambda: wkv6_ref(r, k, v, lw, u, s0), None,
+            nbytes(r, k, v, lw, u, s0, y, state), flops, PEAK_FP32_FLOPS,
+            plain_reps=2)
+
+    for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
+        for S in PREFILL_LENS + ((BINDING_LEN,) if window else ()):
+            flash_row(f"{tag} S={S}", H, KVH, hd, S, window)
+    for tag, (H, KVH, hd, _w) in shapes["decode_attention"]:
+        decode_row(f"{tag} decode", H, KVH, hd)
+    for rung, W in shapes["rglru_scan"]:
+        scan_row(f"{rung} S=256", 1, 256, W)
+        scan_row(f"{rung} decode", SLOTS, 1, W)
+    for rung, (NH, hs) in shapes["rwkv6_scan"]:
+        wkv_row(f"{rung} S=256", 1, 256, NH, hs)
+        wkv_row(f"{rung} decode", SLOTS, 1, NH, hs)
+
+    for kname, by_tag in rows.items():
+        for tag, r in by_tag.items():
+            lib = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.5f}")
+            log(f"  {kname} {tag} [{r['shape']}]: device ms kernel "
+                f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library {lib}, "
+                f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
+                f"{r['peak']} peak); eager call {r['eager_ms']:.5f} ms; "
                 f"max_abs_err {r['max_abs_err']:.3g}")
     torch.cuda.synchronize()
     return rows
@@ -264,41 +454,56 @@ def phase_kernels():
 # Phase 3: fp32 model parity, card (kernels) vs CPU (plain path)
 # ---------------------------------------------------------------------------
 
-def phase_parity():
-    from repro_torch import bridge
-    from repro_torch.configs.qwen2_5_3b import CONFIG
+def parity(arch, num_layers, prompt_len, max_len):
+    """Prefill ``prompt_len`` tokens and decode three, on the card and on
+    the CPU from the same fp32 params; returns the worst logits error."""
+    from repro_torch import bridge, configs
     from repro_torch.device import generator_for
     from repro_torch.models import model as MDL
 
-    cfg = CONFIG.replace(num_layers=2, param_dtype="float32",
-                         activation_dtype="float32")
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = configs.get_config(arch).replace(
+        num_layers=num_layers, param_dtype="float32",
+        activation_dtype="float32")
+    cuda, cpu = DEV, torch.device("cpu")
     params = MDL.init_params(generator_for(cuda, SEED), cfg, device=cuda)
     params_cpu = bridge.params_from_jax(bridge.params_to_numpy(params), cpu)
     toks = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (2, 16)).astype(np.int32)
-    caches = {d: MDL.init_cache(cfg, 2, 32, device=d) for d in (cuda, cpu)}
+        0, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
+    cache_g = MDL.init_cache(cfg, 2, max_len, device=cuda)
+    cache_c = MDL.init_cache(cfg, 2, max_len, device=cpu)
     worst = 0.0
     with torch.inference_mode():
         lg, _ = MDL.prefill(params, cfg, torch.from_numpy(toks).to(cuda),
-                            caches[cuda])
-        lc, _ = MDL.prefill(params_cpu, cfg, torch.from_numpy(toks),
-                            caches[cpu])
-        for step in range(3):
+                            cache_g)
+        lc, _ = MDL.prefill(params_cpu, cfg, torch.from_numpy(toks), cache_c)
+        for step in range(4):
             e = float((lg.cpu() - lc).abs().max())
             worst = max(worst, e)
             tg, tc = lg.argmax(-1).cpu(), lc.argmax(-1)
-            log(f"  {'prefill' if step == 0 else f'decode {step}'}: logits "
-                f"max_abs_err {e:.3g}, greedy card {tg.tolist()} "
+            log(f"  {arch} {'prefill' if step == 0 else f'decode {step}'}: "
+                f"logits max_abs_err {e:.3g}, greedy card {tg.tolist()} "
                 f"cpu {tc.tolist()}")
             if not e < LOGIT_ATOL or not torch.equal(tg, tc):
-                raise AssertionError("card and CPU disagree")
-            if step == 2:
+                raise AssertionError(f"{arch}: card and CPU disagree")
+            if step == 3:
                 break
-            lg, _ = MDL.decode_step(params, cfg, tg.to(cuda), caches[cuda])
-            lc, _ = MDL.decode_step(params_cpu, cfg, tc, caches[cpu])
+            lg, _ = MDL.decode_step(params, cfg, tg.to(cuda), cache_g)
+            lc, _ = MDL.decode_step(params_cpu, cfg, tc, cache_c)
     torch.cuda.synchronize()
+    del params, params_cpu, cache_g, cache_c
+    gc.collect()
+    torch.cuda.empty_cache()
     return worst
+
+
+def phase_parity():
+    out = {"qwen2.5-3b": parity("qwen2.5-3b", 2, 16, 32)}
+    # 5 layers = one (rglru, rglru, local) cycle + the (rglru, rglru) tail;
+    # 2100 > window 2048: banded on the CPU, windowed in K1, and the ring
+    # of 2048 slots wraps in the prefill and again in the decode steps
+    out["recurrentgemma-2b"] = parity("recurrentgemma-2b", 5, 2100, 2200)
+    out["rwkv6-3b"] = parity("rwkv6-3b", 2, 250, 256)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -306,14 +511,14 @@ def phase_parity():
 # ---------------------------------------------------------------------------
 
 
-def serve(server, variant, prompts, timeout=600.0):
+def serve(server, variant, prompts, timeout=600.0, tag=""):
     """Submit every prompt to ``server`` and wait for all of them."""
     from repro_torch.serving.engine import Request
 
     reqs = []
     t0 = time.monotonic()
     for i, p in enumerate(prompts):
-        r = Request(id=f"{server.id}-{i}", prompt=p,
+        r = Request(id=f"{server.id}{tag}-{i}", prompt=p,
                     max_new_tokens=NEW_TOKENS, submitted_at=time.monotonic())
         if not server.submit(variant, r):
             raise AssertionError(f"{server.id} refused request {i}")
@@ -336,7 +541,6 @@ def mirror_tokens(MDL, eng, prompt):
     with torch.inference_mode():
         cache = MDL.init_cache(cfg, eng.batch_slots, eng.max_len, device=dev)
         sub = MDL.cache_take_slot(cache, 0)
-        sub["pos"] = torch.zeros((1,), dtype=torch.int32, device=dev)
         logits, sub = MDL.prefill(eng.params, cfg,
                                   torch.as_tensor(prompt, device=dev)[None],
                                   sub)
@@ -349,6 +553,20 @@ def mirror_tokens(MDL, eng, prompt):
             logits, cache = MDL.decode_step(eng.params, cfg, tok, cache)
             toks.append(int(torch.argmax(logits[0])))
     return toks
+
+
+def fresh_engine_tokens(eng, prompt):
+    """The tokens a new engine on the same params gives ``prompt``."""
+    from repro_torch.serving.engine import InferenceEngine, Request
+
+    fresh = InferenceEngine(eng.cfg, eng.params, batch_slots=eng.batch_slots,
+                            max_len=eng.max_len, device=eng.device)
+    r = Request(id="fresh", prompt=prompt, max_new_tokens=NEW_TOKENS)
+    if not fresh.try_admit(r):
+        raise AssertionError("a fresh engine refused a request")
+    while fresh.active_count():
+        fresh.step()
+    return r.tokens
 
 
 def step_breakdown(MDL, eng, prompt_len=256, n=10):
@@ -384,25 +602,79 @@ def step_breakdown(MDL, eng, prompt_len=256, n=10):
     return out
 
 
-def phase_serve():
-    from repro_torch.configs.qwen2_5_3b import CONFIG as cfg
+def device_profile(MDL, eng, prompt_len=256, n=5):
+    """Device time by kernel name (torch.profiler) over ``n`` decode steps
+    of all slots and ``n`` prefills of ``prompt_len`` tokens, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = eng.cfg, eng.device
+    out = {}
+    with torch.inference_mode():
+        cache = MDL.init_cache(cfg, SLOTS, MAX_LEN, device=dev)
+        cache["pos"].copy_(torch.tensor([97, 161, 288, 400]))
+        tok = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+        prompt = torch.zeros((1, prompt_len), dtype=torch.int32, device=dev)
+        calls = {"decode_step": lambda: MDL.decode_step(eng.params, cfg, tok,
+                                                        cache),
+                 f"prefill_{prompt_len}": lambda: MDL.prefill(
+                     eng.params, cfg, prompt,
+                     MDL.cache_zero(MDL.cache_take_slot(cache, 0)))}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            kern = [(e.key, e.self_device_time_total / 1e3 / n)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            kern.sort(key=lambda kv: -kv[1])
+            total = sum(t for _, t in kern)
+            ours = sum(t for k, t in kern if any(
+                tag in k for tag in ("fa_kernel", "dec_kernel",
+                                     "rglru_kernel", "wkv_kernel")))
+            out[name] = {"device_ms": total, "port_kernels_ms": ours,
+                         "n_kernel_names": len(kern),
+                         "top": [(k[:60], t) for k, t in kern[:6]]}
+    return out
+
+
+def expected_launches(cfg, n_prefills, n_steps):
+    """One launch per layer of each kind per prefill and per decode step."""
+    kinds = cfg.layer_kinds()
+    attn = sum(k in ("global", "local") for k in kinds)
+    rec = {"rglru_scan": kinds.count("rglru"),
+           "rwkv6_scan": kinds.count("rwkv")}
+    out = {"flash_attention": attn * n_prefills,
+           "decode_attention": attn * n_steps}
+    out.update({k: n * (n_prefills + n_steps) for k, n in rec.items()})
+    return out
+
+
+def phase_serve(arch):
+    from repro_torch import configs
     from repro_torch.core.heartbeat import FailureDetector, WallClock
     from repro_torch.core.variants import Application, build_ladder
-    from repro_torch.kernels.decode_attention import ops as dec_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import model as MDL
     from repro_torch.serving.router import Router
     from repro_torch.serving.server import WorkerServer
 
-    app = Application(id="qwen2.5-3b/app0", family=cfg.name,
+    cfg = configs.get_config(arch)
+    ops = ops_modules()
+    app = Application(id=f"{arch}/app0", family=cfg.name,
                       variants=build_ladder(cfg))
     full, w050 = app.full, app.variant_by_name(f"{cfg.name}:w050")
     det = FailureDetector(WallClock(), interval=0.020)
     router = Router()
     workers = {sid: WorkerServer(sid, det, batch_slots=SLOTS,
-                                 max_len=MAX_LEN).start()
+                                 max_len=MAX_LEN, device=DEV).start()
                for sid in ("A", "B")}
     res = {}
+    launches = {}
     try:
         torch.cuda.reset_peak_memory_stats()
         res["load_s_A_full"] = workers["A"].load(app, full)
@@ -411,12 +683,16 @@ def phase_serve():
             f"B {w050.name} {res['load_s_B_w050']:.3f} s")
         eng_a = workers["A"].engines[full.name]
         eng_b = workers["B"].engines[w050.name]
-        n_params = MDL.param_count(eng_a.params)
-        log(f"  {full.name}: {n_params} params, {cfg.num_layers} layers, "
-            f"d_model {cfg.d_model}, vocab {cfg.vocab_size}")
-        if (cfg.num_layers, cfg.d_model, cfg.vocab_size) != (36, 2048,
-                                                              151936):
-            raise AssertionError("not the full-width qwen2.5-3b")
+        fc = full.config
+        log(f"  {full.name}: {MDL.param_count(eng_a.params)} params, "
+            f"{fc.num_layers} layers {fc.block_pattern}, d_model "
+            f"{fc.d_model}, vocab {fc.vocab_size}")
+        widths = ("d_model", "num_heads", "num_kv_heads", "head_dim", "d_ff",
+                  "vocab_size", "rnn_width", "rwkv_head_size", "window_size")
+        if any(getattr(fc, f) != getattr(cfg, f) for f in widths) \
+                or fc.param_dtype != "bfloat16":
+            raise AssertionError(f"{full.name} is not {arch} at its "
+                                 "published widths in bf16")
         router.set_route(app.id, "A", full.name)
         router.set_backup(app.id, "B", w050.name)
 
@@ -424,40 +700,53 @@ def phase_serve():
         lens = rng.integers(64, 257, SLOTS)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                    for n in lens]
-        launches = {}
 
-        def run(tag, eng):
+        def run(tag, eng, batch):
             sid, variant = router.lookup(app.id)
             steps0 = eng.steps
-            fa_ops.LAUNCHES = 0
-            dec_ops.LAUNCHES = 0
-            reqs, t0 = serve(workers[sid], variant, prompts)
-            k1, k2 = fa_ops.LAUNCHES, dec_ops.LAUNCHES
+            for m in ops.values():
+                m.LAUNCHES = 0
+            reqs, t0 = serve(workers[sid], variant, batch, tag=tag)
+            got = {k: m.LAUNCHES for k, m in ops.items()}
             steps = eng.steps - steps0
-            n_layers = eng.cfg.num_layers
+            want = expected_launches(eng.cfg, len(reqs), steps)
             log(f"  {tag}: served {len(reqs)} requests on {sid} {variant}; "
-                f"launches flash_attention {k1}, decode_attention {k2}, "
-                f"decode steps {steps}")
-            if k1 != n_layers * len(reqs) or k2 != n_layers * steps \
-                    or steps < NEW_TOKENS:
-                raise AssertionError(f"{tag}: launches do not match the "
-                                     "path (once per layer per prefill / "
-                                     "decode step)")
-            launches[tag] = {"flash_attention": k1, "decode_attention": k2}
+                f"decode steps {steps}; launches {json.dumps(got)}")
+            if got != want or steps < NEW_TOKENS:
+                raise AssertionError(f"{tag}: launches {got} do not match "
+                                     f"the path {want} (one per layer of "
+                                     "each kind per prefill / decode step)")
+            if not any(got.values()):
+                raise AssertionError(f"{tag}: no kernel launched")
+            launches[tag] = got
             wall = max(r.done_at for r in reqs) - t0
             res[f"tokens_per_s_{tag}"] = sum(len(r.tokens)
                                              for r in reqs) / wall
             return reqs
 
-        reqs_a = run("A", eng_a)
+        reqs_a = run("A", eng_a, prompts)
         mirror = mirror_tokens(MDL, eng_a, prompts[0])
         if reqs_a[0].tokens != mirror:
             raise AssertionError(f"engine tokens {reqs_a[0].tokens} != "
                                  f"model prefill+decode {mirror}")
         log(f"  A's engine tokens for request 0 equal the model's own "
             f"prefill + decode_step ({len(mirror)} tokens)")
+        fifth = rng.integers(0, cfg.vocab_size, 200).astype(np.int32)
+        reused = run("A-reuse", eng_a, [fifth])[0].tokens
+        fresh = fresh_engine_tokens(eng_a, fifth)
+        if reused != fresh:
+            raise AssertionError(f"a reused slot gives {reused}, a fresh "
+                                 f"engine {fresh}")
+        log(f"  slot reuse: a fifth request on a reused slot equals a fresh "
+            f"engine's tokens ({len(fresh)} tokens)")
         res["A_steps"] = step_breakdown(MDL, eng_a)
         log(f"  A {full.name} step breakdown: {json.dumps(res['A_steps'])}")
+        res["A_profile"] = device_profile(MDL, eng_a)
+        for call, p in res["A_profile"].items():
+            log(f"  A {full.name} {call} by kernel (torch.profiler, ms per "
+                f"call): total {p['device_ms']:.3f}, the port's kernels "
+                f"{p['port_kernels_ms']:.3f}, {p['n_kernel_names']} kernel "
+                f"names; top {json.dumps(p['top'])}")
 
         t_kill = time.monotonic()
         workers["A"].kill()
@@ -473,7 +762,7 @@ def phase_serve():
         router.set_route(app.id, *router.lookup_backup(app.id))
         if router.lookup(app.id) != ("B", w050.name):
             raise AssertionError("router did not move the app to B")
-        reqs_b = run("B", eng_b)
+        reqs_b = run("B", eng_b, prompts)
         res["failover_ttft_s"] = min(r.first_token_at for r in reqs_b) \
             - t_kill
         res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
@@ -482,10 +771,19 @@ def phase_serve():
             f"tokens/s A {res['tokens_per_s_A']:.1f}, B "
             f"{res['tokens_per_s_B']:.1f}; max_memory_allocated "
             f"{res['max_memory_allocated_bytes'] / 2**30:.3f} GiB")
+        mirror = mirror_tokens(MDL, eng_b, prompts[0])
+        if reqs_b[0].tokens != mirror:
+            raise AssertionError(f"B's engine tokens {reqs_b[0].tokens} != "
+                                 f"model prefill+decode {mirror}")
+        log(f"  B's engine tokens for request 0 equal the model's own "
+            f"prefill + decode_step on {w050.name} ({len(mirror)} tokens)")
     finally:
         for w in workers.values():
             w.kill()
             w.join()
+            w.engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
     return res, launches
 
 
@@ -516,33 +814,60 @@ def main() -> int:
     secs = _build.build(list(KERNELS))
     log(f"  built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"(per kernel {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
+    for name in KERNELS:
+        lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+        regs = [ln.split(":", 1)[1].strip() for ln in lines
+                if "registers" in ln]
+        spills = sorted({ln.strip() for ln in lines if "spill" in ln})
+        log(f"  ptxas {name}: {'; '.join(regs)} | {'; '.join(spills)}")
 
     log("phase 2: kernels against their plain versions")
+    t0 = time.monotonic()
     rows = phase_kernels()
+    log(f"  phase 2 took {time.monotonic() - t0:.1f} s")
 
-    log("phase 3: fp32 model parity, card vs CPU (qwen2.5-3b, 2 layers)")
+    log("phase 3: fp32 model parity at full width, card vs CPU")
+    t0 = time.monotonic()
     worst = phase_parity()
-    log(f"  worst logits max_abs_err {worst:.3g} (< {LOGIT_ATOL})")
+    log(f"  worst logits max_abs_err {json.dumps(worst)} (< {LOGIT_ATOL}); "
+        f"phase 3 took {time.monotonic() - t0:.1f} s")
 
-    log("phase 4: serve qwen2.5-3b:full, kill it, fail over to w050")
-    res, launches = phase_serve()
-    log("  " + json.dumps({"serve": res}))
-    st = res["A_steps"]
-    for name in ("decode_step", "prefill_256"):
-        wall, devt = st[f"{name}_wall_ms"], st[f"{name}_device_ms"]
-        log(f"  {name} on qwen2.5-3b:full: host wall {wall:.3f} ms, device "
-            f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}")
+    serves, launches = {}, {}
+    for arch in ARCHS:
+        log(f"phase 4: serve {arch}:full, kill it, fail over to w050")
+        t0 = time.monotonic()
+        serves[arch], launches[arch] = phase_serve(arch)
+        log("  " + json.dumps({"serve": {arch: serves[arch]}}))
+        st = serves[arch]["A_steps"]
+        for name in ("decode_step", "prefill_256"):
+            wall, devt = st[f"{name}_wall_ms"], st[f"{name}_device_ms"]
+            log(f"  {name} on {arch}:full: host wall {wall:.3f} ms, device "
+                f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}")
+        log(f"  phase 4 {arch} took {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name, (src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
+        by_path = {f"{arch}:{tag}": n[name] for arch, runs in launches.items()
+                   for tag, n in runs.items() if n[name]}
+        main_path = sum(launches[arch]["A"][name] for arch in ARCHS)
+        if not main_path:
+            raise AssertionError(f"{name} was never launched on the main "
+                                 "path")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches["A"][name],
+            "replaces": replaces, "launches": main_path,
             "max_abs_err": max(x["max_abs_err"] for x in rows[name].values()),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"]})
+            "library_ms": r["library_ms"], "shape": r["shape"],
+            "peak": r["peak"],
+            **({"library": NO_LIBRARY} if r["library_ms"] is None else {}),
+            "launches_by_path": by_path,
+            "rows": {tag: {k: x[k] for k in ("shape", "ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}
+                     for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -13,14 +13,13 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # archs of the JAX package that the port does not serve yet
 _PENDING = {
-    "qwen3-32b": "Queue 1, next dense item (qk_norm, untied unembed)",
-    "recurrentgemma-2b": "Queue 1, recurrentgemma-2b (K3 rglru_scan, "
-                         "local ring-buffer attention)",
-    "rwkv6-3b": "Queue 1, rwkv6-3b (K4 rwkv6_scan)",
+    "qwen3-32b": "Queue 1, qwen3-32b (qk_norm)",
     "qwen3-moe-30b-a3b": "Queue 1, MoE",
     "arctic-480b": "Queue 1, MoE",
     "qwen1.5-4b": "Queue 1, remaining archs",

@@ -25,8 +25,9 @@
 // What bounds it on the H100: decode reads every valid K/V byte once and
 // does 4*hd flops per (head, key), far below the card's ops:byte ratio, so
 // the bound is the KV bytes over the memory rate. The known weak point is
-// parallelism: at B = 4 slots and KVH = 2 the grid is 8 blocks on 132 SMs,
-// so one SM streams a whole sequence. The fix is split-KV flash-decoding
+// parallelism: at B = 4 slots and KVH = 2 the grid is 8 blocks on 132 SMs
+// (4 blocks for recurrentgemma-2b's single KV head at head_dim 256), so one
+// SM streams a whole sequence. The fix is split-KV flash-decoding
 // (partials over KV chunks on many blocks, then a second reduce pass).
 
 #include <cuda_runtime.h>
@@ -237,6 +238,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
       return launch<T, 64>(q, k, v, lens, o, B, H, KVH, Smax, a, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, lens, o, B, H, KVH, Smax, a, window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, lens, o, B, H, KVH, Smax, a, window, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -30,6 +30,9 @@
 // bytes that fit in L2, so the bound is the tensor-core rate. This kernel
 // does its products with scalar fp32 FMAs (no mma/wgmma, no TMA), so it
 // runs far from that bound; wgmma with TMA-fed tiles is the later step.
+// At head_dim 256 (recurrentgemma-2b) the fp32 tiles take ~170 KB of
+// dynamic shared memory, so one block fits on an SM; its sliding-window
+// prefill (window 2048) visits only the KV tiles of each query tile's band.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -282,6 +285,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                            causal, window, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                            causal, window, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
                             causal, window, stream);
     default:
       return cudaErrorInvalidValue;

@@ -16,7 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = _build.DTYPE_CODES
 
 # kernel launches since the last reset; read and reset by chip_smoke.py

@@ -5,9 +5,11 @@ shapes, so a params bridge maps them 1:1. ``logical_constraint`` is
 dropped: it is a no-op on one device.
 
 ``flash_attention`` and ``decode_attention`` send a CUDA tensor to the
-hand-written kernels and a CPU tensor to ``flash_attention_blocked`` /
-``decode_attention_dense``, the ports of ``flash_attention_jnp`` /
-``decode_attention_jnp``, which scale q in the model dtype as JAX does.
+hand-written kernels and a CPU tensor to ``flash_attention_blocked`` (or
+``banded_local_attention`` when a sliding window binds) /
+``decode_attention_dense``, the ports of ``flash_attention_jnp``,
+``banded_local_attention_jnp`` and ``decode_attention_jnp``, which scale q
+in the model dtype as JAX does.
 """
 
 from __future__ import annotations
@@ -43,6 +45,21 @@ def rmsnorm(params, x, eps=1e-6):
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * params["scale"].float()).to(dt)
+
+
+def init_layernorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps=1e-6):
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = x * params["scale"].float() + params["bias"].float()
+    return out.to(dt)
 
 
 # --------------------------------------------------------------------------
@@ -100,6 +117,10 @@ def flash_attention(q, k, v, *, causal=True, window=0):
     if q.is_cuda:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window)
+    if window > 0 and causal and q.shape[1] == k.shape[1] > window:
+        # as layer_forward in the JAX model: a binding static window is
+        # banded; K1 skips the tiles outside the band on the card
+        return banded_local_attention(q, k, v, window=window)
     return flash_attention_blocked(q, k, v, causal=causal, window=window,
                                    kv_block=min(1024, max(128, q.shape[1])))
 
@@ -165,6 +186,41 @@ def flash_attention_blocked(q, k, v, *, causal=True, window=0,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
     return out.to(q.dtype)
+
+
+def banded_local_attention(q, k, v, *, window, q_block=512):
+    """Port of ``banded_local_attention_jnp``: causal sliding-window
+    self-attention where each q block attends only to its
+    (window + q_block) KV band. Full sequence (Sq == Skv) only."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    q_block = min(q_block, S)
+    pad_s = (-S) % q_block
+    if pad_s:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad_s)) for t in (q, k, v))
+    band = window + q_block
+    kp = F.pad(k, (0, 0, 0, 0, window, 0))
+    vp = F.pad(v, (0, 0, 0, 0, window, 0))
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    outs = []
+    for i in range(q.shape[1] // q_block):
+        q0 = i * q_block
+        qb = qs[:, q0:q0 + q_block].float()
+        kb = _expand_heads(kp[:, q0:q0 + band], G)
+        vb = _expand_heads(vp[:, q0:q0 + band], G)
+        q_pos = q0 + torch.arange(q_block, device=q.device)
+        kv_pos = q0 - window + torch.arange(band, device=q.device)
+        s = torch.einsum("bqhk,bshk->bqhs", qb, kb.float())
+        mask = ((q_pos[:, None] >= kv_pos[None, :])
+                & (kv_pos[None, :] > q_pos[:, None] - window)
+                & (kv_pos[None, :] >= 0) & (q_pos[:, None] < S))
+        s = torch.where(mask[None, :, None, :], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        ob = torch.einsum("bqhs,bshk->bqhk", p.to(vb.dtype).float(),
+                          vb.float())
+        outs.append(ob.to(q.dtype))
+    return torch.cat(outs, dim=1)[:, :S]
 
 
 def decode_attention_dense(q, k_cache, v_cache, cache_len, *, window=0):

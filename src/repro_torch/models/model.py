@@ -6,10 +6,13 @@ the layer index as the leading axis) and ``tail`` (unstacked remainder
 layers). ``lax.scan`` over cycles becomes a Python loop over the stacked
 params; each layer reads its slice as a view.
 
-Only the ``"global"`` layer kind is ported. The KV cache is updated in
-place (``prefill`` and ``decode_step`` write into the tensors of the
-cache they are given and return that cache), which keeps one resident
-copy of the slot cache; the JAX functions return a new tree instead.
+The kinds ``global``, ``local`` (sliding window over a ring-buffer KV
+cache), ``rglru`` (Griffin recurrent block) and ``rwkv`` (RWKV-6 time-mix
+and channel-mix) are ported. The cache — KV buffers and recurrent states
+alike — is updated in place (``prefill`` and ``decode_step`` write into
+the tensors of the cache they are given and return that cache), which
+keeps one resident copy of the slot cache; the JAX functions return a new
+tree instead.
 """
 
 from __future__ import annotations
@@ -21,29 +24,29 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig
 
-# ROADMAP items that bring the layer kinds and features this slice lacks
+KINDS = ("global", "local", "rglru", "rwkv")
+
+# ROADMAP items that bring the layer kinds and features not ported yet
 _PENDING_KINDS = {
-    "local": "Queue 1, recurrentgemma-2b (local ring-buffer attention)",
-    "rglru": "Queue 1, recurrentgemma-2b (K3 rglru_scan)",
-    "rwkv": "Queue 1, rwkv6-3b (K4 rwkv6_scan)",
     "moe": "Queue 1, MoE",
     "moe_dense": "Queue 1, MoE",
 }
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what this slice does not port."""
+    """Raise NotImplementedError for what the port does not serve yet."""
     for kind in cfg.block_pattern:
-        if kind != "global":
+        if kind not in KINDS:
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet; see ROADMAP.md "
                 f"{_PENDING_KINDS[kind]}")
-    if cfg.qk_norm or not cfg.tie_embeddings:
+    if cfg.qk_norm:
         raise NotImplementedError(
-            "qk_norm and untied unembed are not ported yet; see ROADMAP.md "
-            "Queue 1, next dense item (qwen3-32b)")
+            "qk_norm is not ported yet; see ROADMAP.md Queue 1, qwen3-32b")
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise NotImplementedError(
             "encoder-decoder and patch-prefix models are not ported yet; "
@@ -57,14 +60,28 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Dict[str, Any]:
     dt = cfg.pdtype
     d = cfg.d_model
-    if kind != "global":
-        raise NotImplementedError(kind)
-    return {
-        "norm1": L.init_rmsnorm(d, dt, device),
-        "attn": L.init_attention(gen, cfg, device),
-        "norm2": L.init_rmsnorm(d, dt, device),
-        "ffn": L.init_swiglu(gen, d, cfg.d_ff, dt, device),
-    }
+    if kind in ("global", "local"):
+        return {
+            "norm1": L.init_rmsnorm(d, dt, device),
+            "attn": L.init_attention(gen, cfg, device),
+            "norm2": L.init_rmsnorm(d, dt, device),
+            "ffn": L.init_swiglu(gen, d, cfg.d_ff, dt, device),
+        }
+    if kind == "rglru":
+        return {
+            "norm1": L.init_rmsnorm(d, dt, device),
+            "rec": R.init_rglru(gen, cfg, device),
+            "norm2": L.init_rmsnorm(d, dt, device),
+            "ffn": L.init_swiglu(gen, d, cfg.d_ff, dt, device),
+        }
+    if kind == "rwkv":
+        return {
+            "norm1": L.init_layernorm(d, dt, device),
+            "tm": W.init_time_mix(gen, cfg, device),
+            "norm2": L.init_layernorm(d, dt, device),
+            "cm": W.init_channel_mix(gen, cfg, device),
+        }
+    raise NotImplementedError(kind)
 
 
 def _tree_map(fn, *trees):
@@ -117,17 +134,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
             cycles.append(stacked)
     tail = [init_layer(generator, cfg, kinds[i], dev)
             for i in range(cfg.num_layers - n_tail, cfg.num_layers)]
-    return {
+    p = {
         "embed": L.init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                   cfg.pdtype, dev),
-        "final_norm": L.init_rmsnorm(cfg.d_model, cfg.pdtype, dev),
+        "final_norm": (L.init_layernorm if "rwkv" in pat else
+                       L.init_rmsnorm)(cfg.d_model, cfg.pdtype, dev),
         "cycles": cycles,
         "tail": tail,
     }
+    if not cfg.tie_embeddings:
+        p["unembed"] = L.init_embedding(generator, cfg.vocab_size,
+                                        cfg.d_model, cfg.pdtype, dev)
+    return p
 
 
-def _layers(params, cache=None) -> Iterator[Tuple[Dict, Dict]]:
-    """(layer params, layer cache) in stack order; views, not copies.
+def _layers(cfg, params, cache=None) -> Iterator[Tuple[str, Dict, Dict]]:
+    """(kind, layer params, layer cache) in stack order; views, not copies.
 
     Mirrors ``lax.scan`` over ``cycles`` followed by the unrolled tail.
     """
@@ -136,51 +158,93 @@ def _layers(params, cache=None) -> Iterator[Tuple[Dict, Dict]]:
     if cyc_p:
         n = next(iter(cyc_p[0]["norm1"].values())).shape[0]
         for c in range(n):
-            for p_pos, c_pos in zip(cyc_p, cyc_c):
-                yield (_tree_map(lambda t: t[c], p_pos),
+            for kind, p_pos, c_pos in zip(cfg.block_pattern, cyc_p, cyc_c):
+                yield (kind, _tree_map(lambda t: t[c], p_pos),
                        None if c_pos is None else
                        _tree_map(lambda t: t[c], c_pos))
     tail_c = cache["tail"] if cache is not None else [None] * len(
         params["tail"])
-    yield from zip(params["tail"], tail_c)
+    tail_kinds = cfg.layer_kinds()[cfg.num_layers - len(params["tail"]):]
+    yield from zip(tail_kinds, params["tail"], tail_c)
 
 
 # ---------------------------------------------------------------------------
 # Per-layer apply: full-sequence (prefill / forward) and single-step (decode)
 # ---------------------------------------------------------------------------
 
-def layer_forward(params, cfg, x, positions, cache=None):
-    """Full-sequence ``global`` layer. Writes K/V into ``cache`` (in
-    place) when one is given. Returns x."""
+def _recurrent_layer(params, cfg, kind, x, state):
+    """An ``rwkv`` or ``rglru`` layer over S >= 1 tokens, from ``state``
+    (updated in place) or from zeros when it is None. Returns x."""
+    if kind == "rwkv":
+        h, _ = W.time_mix(params["tm"], cfg,
+                          L.layernorm(params["norm1"], x, cfg.norm_eps),
+                          None if state is None else state["tm"])
+        x = x + h
+        h, _ = W.channel_mix(params["cm"], cfg,
+                             L.layernorm(params["norm2"], x, cfg.norm_eps),
+                             None if state is None else state["cm"])
+        return x + h
+    h, _ = R.recurrent_block(params["rec"], cfg,
+                             L.rmsnorm(params["norm1"], x, cfg.norm_eps),
+                             state)
+    x = x + h
+    return x + L.swiglu(params["ffn"],
+                        L.rmsnorm(params["norm2"], x, cfg.norm_eps))
+
+
+def layer_forward(params, cfg, kind, x, positions, cache=None):
+    """Full-sequence layer apply. With a cache, the recurrent kinds start
+    from its state and every kind leaves its state (K/V, ``h``/``conv``,
+    ``last``/``wkv``) in it, in place. Returns x."""
+    if kind in ("rwkv", "rglru"):
+        return _recurrent_layer(params, cfg, kind, x, cache)
+
+    window = cfg.window_size if kind == "local" else 0
     xn = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     q, k, v = L._qkv(params["attn"], cfg, xn, positions)
-    o = L.flash_attention(q, k, v, causal=True, window=0)
+    o = L.flash_attention(q, k, v, causal=True, window=window)
     x = x + torch.einsum("bshk,hkd->bsd", o, params["attn"]["wo"])
     xn = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
     x = x + L.swiglu(params["ffn"], xn)
     if cache is not None:
-        _write_kv_prefill(cache, k, v)
+        _write_kv_prefill(cache, kind, k, v)
     return x
 
 
-def _write_kv_prefill(cache, k, v):
-    """Write prefill K/V into the cache from slot 0 (``global`` kind)."""
+def _kv_cache_len(cfg, kind, max_len):
+    return min(cfg.window_size, max_len) if kind == "local" else max_len
+
+
+def _write_kv_prefill(cache, kind, k, v):
+    """Write prefill K/V into the cache from slot 0, or, for a ``local``
+    prompt longer than its ring buffer, the last W tokens at slots t % W."""
     S = k.shape[1]
-    cache["k"][:, :S] = k
-    cache["v"][:, :S] = v
+    W_ = cache["k"].shape[1]
+    if kind == "local" and S > W_:
+        slots = torch.arange(S - W_, S, device=k.device) % W_
+        cache["k"][:, slots] = k[:, S - W_:]
+        cache["v"][:, slots] = v[:, S - W_:]
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
 
 
-def layer_decode(params, cfg, x, pos, cache):
-    """Single-token ``global`` layer. x: (B,1,d); pos: (B,) absolute
-    position. Writes this step's K/V into ``cache`` before attending."""
+def layer_decode(params, cfg, kind, x, pos, cache):
+    """Single-token layer apply. x: (B,1,d); pos: (B,) absolute position.
+    Updates ``cache`` in place (an attention kind writes this step's K/V
+    before attending)."""
+    if kind in ("rwkv", "rglru"):
+        return _recurrent_layer(params, cfg, kind, x, cache)
+
     xn = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     q, k, v = L._qkv(params["attn"], cfg, xn, pos[:, None])
     W_ = cache["k"].shape[1]
-    # as the one-hot select of the JAX model: position pos, no write when
-    # pos is past the end of the cache
+    # as the one-hot select of the JAX model: the ring slot pos % W for
+    # ``local``, position pos for ``global`` (no write past the end)
+    slot = pos % W_ if kind == "local" else pos
     rows = torch.arange(x.shape[0], device=x.device)
-    slot = pos.clamp(max=W_ - 1).long()
-    keep = (pos >= W_)[:, None, None]
+    keep = (slot >= W_)[:, None, None]
+    slot = slot.clamp(max=W_ - 1).long()
     for name, new in (("k", k), ("v", v)):
         buf = cache[name]
         buf[rows, slot] = torch.where(keep, buf[rows, slot], new[:, 0])
@@ -195,8 +259,13 @@ def layer_decode(params, cfg, x, pos, cache):
 # Cache allocation
 # ---------------------------------------------------------------------------
 
-def init_layer_cache(cfg, batch, max_len, device):
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+def init_layer_cache(cfg, kind, batch, max_len, device):
+    if kind == "rwkv":
+        return W.init_rwkv_state(cfg, batch, device)
+    if kind == "rglru":
+        return R.init_rglru_state(cfg, batch, cfg.adtype, device)
+    shape = (batch, _kv_cache_len(cfg, kind, max_len), cfg.num_kv_heads,
+             cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.adtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.adtype, device=device)}
 
@@ -206,14 +275,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     check_supported(cfg)
     dev = resolve_device(device)
     n_cycles, n_tail = _layer_counts(cfg)
-    plen = len(cfg.block_pattern)
     cycles = []
     if n_cycles:
-        shape = (n_cycles, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-        cycles = [{"k": torch.zeros(shape, dtype=cfg.adtype, device=dev),
-                   "v": torch.zeros(shape, dtype=cfg.adtype, device=dev)}
-                  for _ in range(plen)]
-    tail = [init_layer_cache(cfg, batch, max_len, dev) for _ in range(n_tail)]
+        for kind in cfg.block_pattern:
+            one = init_layer_cache(cfg, kind, batch, max_len, dev)
+            cycles.append(_tree_map(
+                lambda t: torch.zeros((n_cycles,) + tuple(t.shape),
+                                      dtype=t.dtype, device=dev), one))
+    tail = [init_layer_cache(cfg, kind, batch, max_len, dev)
+            for kind in cfg.layer_kinds()[cfg.num_layers - n_tail:]]
     return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "cycles": cycles, "tail": tail}
 
@@ -230,31 +300,34 @@ def _embed_inputs(params, cfg, tokens):
 
 
 def _unembed(params, cfg, x):
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params["embed"], x, cfg.logit_softcap)
+    norm = L.layernorm if "rwkv" in cfg.block_pattern else L.rmsnorm
+    x = norm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params.get("unembed", params["embed"]), x,
+                     cfg.logit_softcap)
 
 
 def forward(params, cfg: ModelConfig, tokens):
-    """Full-sequence forward. Returns (logits, aux_loss) as JAX does;
-    aux is 0 for the dense kinds."""
+    """Full-sequence forward from zero state. Returns (logits, aux_loss)
+    as JAX does; aux is 0 for the ported kinds."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for p_l, _ in _layers(params):
-        x = layer_forward(p_l, cfg, x, positions)
+    for kind, p_l, _ in _layers(cfg, params):
+        x = layer_forward(p_l, cfg, kind, x, positions)
     return _unembed(params, cfg, x), torch.zeros((), device=x.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache):
     """Process a prompt, fill the cache in place. Returns (last-token
-    logits, cache). Attends only over the new K/V (a fresh cache, as the
-    engine uses it) and writes them from cache slot 0."""
+    logits, cache). Attends only over the new K/V and writes them from
+    cache slot 0 (a fresh cache, as the engine uses it); the recurrent
+    kinds start from the state the cache holds, as in the JAX model."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens)
     S = x.shape[1]
     positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
-    for p_l, c_l in _layers(params, cache):
-        x = layer_forward(p_l, cfg, x, positions, cache=c_l)
+    for kind, p_l, c_l in _layers(cfg, params, cache):
+        x = layer_forward(p_l, cfg, kind, x, positions, cache=c_l)
     logits = _unembed(params, cfg, x[:, -1:])
     cache["pos"] += S
     return logits[:, 0], cache
@@ -266,8 +339,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
     check_supported(cfg)
     pos = cache["pos"]
     x = _embed_inputs(params, cfg, tokens[:, None])
-    for p_l, c_l in _layers(params, cache):
-        x = layer_decode(p_l, cfg, x, pos, c_l)
+    for kind, p_l, c_l in _layers(cfg, params, cache):
+        x = layer_decode(p_l, cfg, kind, x, pos, c_l)
     logits = _unembed(params, cfg, x)
     cache["pos"] += 1
     return logits[:, 0], cache
@@ -284,6 +357,13 @@ def cache_take_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:
     views: writes through them land in ``cache``."""
     return {k: _tree_map(lambda t, ax=_batch_axis(k): t.narrow(ax, slot, 1),
                          v) for k, v in cache.items()}
+
+
+def cache_zero(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Zero every leaf of a cache or slot view in place (KV buffers,
+    recurrent states and ``pos``)."""
+    _tree_map(lambda t: t.zero_(), tree)
+    return tree
 
 
 def cache_put_slot(cache: Dict[str, Any], slot: int,

@@ -100,9 +100,11 @@ class InferenceEngine:
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
                                  device=self.device)[None, :]
         with self._model_lock:
-            sub = MDL.cache_take_slot(self.cache, slot)
-            sub["pos"] = torch.zeros((1,), dtype=torch.int32,
-                                     device=self.device)
+            # a request starts from zero state: the slot still holds the
+            # previous request's KV and recurrent state, advanced further by
+            # every decode step it sat through empty (the JAX engine resets
+            # only pos, and its recurrent archs leak state between requests)
+            sub = MDL.cache_zero(MDL.cache_take_slot(self.cache, slot))
             logits, sub = MDL.prefill(self.params, self.cfg, prompt, sub)
             MDL.cache_put_slot(self.cache, slot, sub)
             first = int(torch.argmax(logits[0]))

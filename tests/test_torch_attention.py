@@ -8,7 +8,7 @@ interpret mode, as tests/test_kernels.py runs them. The plain versions in
 ``ref.py`` are held against the JAX oracles. Tolerances are those of
 tests/test_kernels.py: f32 2e-5, bf16 2e-2 (one bf16 ulp of an O(1)
 output is 2^-7..2^-6). The CUDA kernels against their plain versions run
-only on the card (marker ``cuda``).
+only on the card, in tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -148,36 +148,3 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         dec_ops.decode_attention(q[:, :1], q[:, :, :2], q[:, :, :2],
                                  torch.ones(2, dtype=torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_kernels_match_plain_on_cuda(dtype):
-    """K1 and K2 against their plain versions on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels run only on the card")
-    dt, dev = TDT[dtype], "cuda"
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device=dev).manual_seed(0)
-    for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP:
-        q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dt)
-        k = torch.randn(B, Skv, KVH, hd, generator=g, device=dev).to(dt)
-        v = torch.randn(B, Skv, KVH, hd, generator=g, device=dev).to(dt)
-        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-        ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal,
-                                  window=window).transpose(1, 2)
-        assert float((out.float() - ref.float()).abs().max()) < ATOL[dtype]
-    for B, H, KVH, hd, Smax, window in DECODE_SWEEP:
-        q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dt)
-        kc = torch.randn(B, Smax, KVH, hd, generator=g, device=dev).to(dt)
-        vc = torch.randn(B, Smax, KVH, hd, generator=g, device=dev).to(dt)
-        lens = torch.randint(1, Smax + 1, (B,), generator=g, device=dev,
-                             dtype=torch.int32)
-        out = dec_ops.decode_attention(q, kc, vc, lens, window=window)
-        ref = decode_attention_ref(q[:, 0], kc.transpose(1, 2),
-                                   vc.transpose(1, 2), lens, window=window)
-        assert float((out[:, 0].float() - ref.float()).abs().max()) \
-            < ATOL[dtype]
-    torch.cuda.synchronize()

@@ -21,15 +21,46 @@ from repro_torch.serving.router import Router  # noqa: E402
 ROOT = Path(__file__).resolve().parents[1]
 CFG_FIELDS = ("name", "num_layers", "d_model", "num_heads", "num_kv_heads",
               "head_dim", "d_ff", "vocab_size", "quant_bits", "width_mult",
-              "depth_mult", "param_dtype", "activation_dtype")
+              "depth_mult", "param_dtype", "activation_dtype", "rnn_width",
+              "rnn_blocks", "window_size", "rwkv_head_size", "block_pattern",
+              "tie_embeddings", "scale_embedding")
+ARCHS = ["qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b"]
+
+
+def test_configs_are_copies():
+    for arch in ARCHS:
+        for getter in ("get_config", "get_smoke"):
+            a = getattr(jconfigs, getter)(arch)
+            b = getattr(tconfigs, getter)(arch)
+            fa = {f: getattr(a, f) for f in a.__dataclass_fields__}
+            fb = {f: getattr(b, f) for f in b.__dataclass_fields__}
+            assert fa == fb, (arch, getter)
+
+
+@pytest.mark.parametrize("arch", ARCHS[1:])
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+def test_build_ladder_matches_jax_recurrent(which, arch):
+    test_build_ladder_matches_jax(which, arch)
+
+
+def test_recurrentgemma_full_rung_has_27_layers():
+    """The ladder rounds depth to whole (rglru, rglru, local) cycles, so
+    the served :full has 27 layers where the published config has 26."""
+    for mod in (jvariants, tvariants):
+        cfgs = jconfigs if mod is jvariants else tconfigs
+        ladder = mod.build_ladder(cfgs.get_config("recurrentgemma-2b"))
+        full = ladder[0]
+        assert full.name == "recurrentgemma-2b:full"
+        assert full.config.num_layers == 27
+        assert cfgs.get_config("recurrentgemma-2b").num_layers == 26
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
-def test_build_ladder_matches_jax(which):
+def test_build_ladder_matches_jax(which, arch="qwen2.5-3b"):
     get_j = jconfigs.get_config if which == "CONFIG" else jconfigs.get_smoke
     get_t = tconfigs.get_config if which == "CONFIG" else tconfigs.get_smoke
-    lj = jvariants.build_ladder(get_j("qwen2.5-3b"))
-    lt = tvariants.build_ladder(get_t("qwen2.5-3b"))
+    lj = jvariants.build_ladder(get_j(arch))
+    lt = tvariants.build_ladder(get_t(arch))
     assert [v.name for v in lj] == [v.name for v in lt]
     for a, b in zip(lj, lt):
         assert (a.mem_bytes, a.compute, a.accuracy, a.quant_bits,
@@ -107,13 +138,19 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
-        "print(sum(m.startswith('repro_torch') for m in sys.modules))\n")
+        "print(' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    mods = set(out.stdout.split())
+    assert len(mods) >= 25
+    assert {"repro_torch.models.rglru", "repro_torch.models.rwkv6",
+            "repro_torch.kernels.rglru_scan.ops",
+            "repro_torch.kernels.rwkv6_scan.ops",
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.configs.rwkv6_3b"} <= mods
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():
@@ -141,16 +178,24 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_archs_and_kinds_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        tconfigs.get_config("rwkv6-3b")
+    for arch in ("qwen3-32b", "qwen3-moe-30b-a3b", "gemma3-27b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            tconfigs.get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("nope")
+    assert set(ARCHS) <= set(tconfigs.ARCHS)
     from repro_torch.models import model as MDL
     from repro_torch.device import generator_for
     cfg = tconfigs.get_smoke("qwen2.5-3b")
     gen = generator_for(torch.device("cpu"), 0)
-    for bad in (cfg.replace(block_pattern=("local",)),
+    for bad in (cfg.replace(block_pattern=("moe",), num_experts=4, top_k=2),
+                cfg.replace(block_pattern=("global", "moe_dense")),
                 cfg.replace(qk_norm=True),
-                cfg.replace(tie_embeddings=False)):
+                cfg.replace(is_encoder_decoder=True),
+                cfg.replace(num_patch_tokens=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MDL.init_params(gen, bad, device="cpu")
+    # the kinds and features this slice brought now build
+    for good in (cfg.replace(block_pattern=("local", "global")),
+                 cfg.replace(tie_embeddings=False)):
+        MDL.init_params(gen, good, device="cpu")

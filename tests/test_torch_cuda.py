@@ -1,0 +1,179 @@
+"""The port's CUDA kernels against their plain versions, and the model on
+the card against the model on the CPU. Every test here needs the card
+(marker ``cuda``) and skips without one; the file imports neither jax nor
+the JAX package, so it runs on a machine that has only PyTorch:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1/K2 f32 2e-5, bf16 2e-2 and K3 1e-5, K4 5e-4 (those of
+tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.device import generator_for  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as dec_ops  # noqa: E402
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import \
+    flash_attention_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
+from repro_torch.models import model as MDL  # noqa: E402
+
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SCAN_ATOL, WKV_ATOL, LOGIT_ATOL = 1e-5, 5e-4, 1e-3
+
+FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
+    (2, 64, 64, 4, 2, 32, True, 0),
+    (1, 100, 100, 4, 1, 64, True, 16),
+    (2, 96, 96, 8, 8, 32, False, 0),
+    (1, 33, 33, 2, 2, 128, True, 8),
+    (1, 300, 300, 10, 1, 256, True, 256),   # recurrentgemma heads, window
+]
+DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
+    (3, 8, 2, 64, 200, 0),
+    (2, 4, 1, 32, 64, 16),
+    (1, 16, 16, 128, 300, 0),
+    (4, 10, 1, 256, 512, 0),                # recurrentgemma heads
+]
+SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256),     # :64-68
+              (1, 256, 2560), (4, 1, 2560)]
+WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8),  # :82-86
+             (1, 40, 256, 64), (4, 40, 1, 64)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _max_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_on_cuda(cuda, dtype):
+    """K1 and K2 against their plain versions on the card."""
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP:
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+        k = torch.randn(B, Skv, KVH, hd, generator=g, device=cuda).to(dt)
+        v = torch.randn(B, Skv, KVH, hd, generator=g, device=cuda).to(dt)
+        out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window).transpose(1, 2)
+        assert _max_err(out, ref) < ATOL[dtype]
+    for B, H, KVH, hd, Smax, window in DECODE_SWEEP:
+        q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dt)
+        kc = torch.randn(B, Smax, KVH, hd, generator=g, device=cuda).to(dt)
+        vc = torch.randn(B, Smax, KVH, hd, generator=g, device=cuda).to(dt)
+        lens = torch.randint(1, Smax + 1, (B,), generator=g, device=cuda,
+                             dtype=torch.int32)
+        out = dec_ops.decode_attention(q, kc, vc, lens, window=window)
+        ref = decode_attention_ref(q[:, 0], kc.transpose(1, 2),
+                                   vc.transpose(1, 2), lens, window=window)
+        assert _max_err(out[:, 0], ref) < ATOL[dtype]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_matches_plain_on_cuda(cuda):
+    """K3 against its plain version on the card, h_last aliasing h0."""
+    r = np.random.default_rng(7)
+    for B, S, W in SCAN_SWEEP:
+        a = 1 / (1 + np.exp(-r.standard_normal((B, S, W)))) * 0.2 + 0.8
+        b = r.standard_normal((B, S, W)) * 0.1
+        h0 = r.standard_normal((B, W))
+        a, b, h0 = (torch.from_numpy(x.astype(np.float32)).to(cuda)
+                    for x in (a, b, h0))
+        h_ref, hl_ref = rglru_scan_ref(a, b, h0)
+        state = h0.clone()
+        h, hl = rglru_ops.rglru_scan(a, b, state, h_last=state)
+        torch.cuda.synchronize()
+        assert hl is state
+        assert _max_err(h, h_ref) < SCAN_ATOL
+        assert _max_err(state, hl_ref) < SCAN_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_kernel_matches_plain_on_cuda(cuda, dtype):
+    """K4 against its plain version on the card, from a nonzero state
+    (s_out aliasing s0), lw down to -3."""
+    dt = TDT[dtype]
+    tol = WKV_ATOL if dtype == "float32" else ATOL[dtype]
+    r = np.random.default_rng(4)
+    for B, NH, S, hs in WKV_SWEEP:
+        rkv = [torch.from_numpy(r.standard_normal((B, S, NH, hs))
+                                .astype(np.float32)).to(cuda).to(dt)
+               for _ in range(3)]
+        lw = -np.exp(r.uniform(np.log(0.05), np.log(3.0), (B, S, NH, hs)))
+        u = r.standard_normal((NH, hs)) * 0.3
+        s0 = r.standard_normal((B, NH, hs, hs)) * 0.3
+        lw, u, s0 = (torch.from_numpy(x.astype(np.float32)).to(cuda)
+                     for x in (lw, u, s0))
+        y_ref, s_ref = wkv6_ref(*rkv, lw, u, s0)
+        state = s0.clone()
+        y, s = wkv_ops.wkv6(*rkv, lw, u, state, s_out=state)
+        torch.cuda.synchronize()
+        assert s is state
+        assert _max_err(y, y_ref) < tol
+        assert _max_err(state, s_ref) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-2b",
+                                  "rwkv6-3b"])
+def test_model_on_card_matches_cpu(cuda, arch):
+    """SMOKE widths (head_dim 32, which the attention kernels take), fp32:
+    a 12-token prefill and 10 decode steps on the card (kernels; the
+    recurrentgemma window of 8 binds and its ring wraps) against the CPU
+    (plain path), and one kernel launch per layer of its kind."""
+    cfg = configs.get_smoke(arch)
+    if cfg.num_heads:
+        cfg = cfg.replace(head_dim=32)
+    cpu = torch.device("cpu")
+    params = MDL.init_params(generator_for(cpu, 0), cfg, device=cpu)
+    params_g = MDL._tree_map(lambda t: t.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 22)).astype(np.int32))
+    cache_c = MDL.init_cache(cfg, 2, 32, device=cpu)
+    cache_g = MDL.init_cache(cfg, 2, 32, device=cuda)
+    kinds = cfg.layer_kinds()
+    mods = {"attn": (fa_ops, dec_ops), "rglru": (rglru_ops, rglru_ops),
+            "rwkv": (wkv_ops, wkv_ops)}
+    for m in (fa_ops, dec_ops, rglru_ops, wkv_ops):
+        m.LAUNCHES = 0
+    with torch.inference_mode():
+        lc, _ = MDL.prefill(params, cfg, toks[:, :12], cache_c)
+        lg, _ = MDL.prefill(params_g, cfg, toks[:, :12].to(cuda), cache_g)
+        for t in range(12, 22):
+            assert _max_err(lg.cpu(), lc) < LOGIT_ATOL
+            assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+            lc, _ = MDL.decode_step(params, cfg, toks[:, t], cache_c)
+            lg, _ = MDL.decode_step(params_g, cfg, toks[:, t].to(cuda),
+                                    cache_g)
+        assert _max_err(lg.cpu(), lc) < LOGIT_ATOL
+    torch.cuda.synchronize()
+    want = {m: 0 for m in (fa_ops, dec_ops, rglru_ops, wkv_ops)}
+    for kind in kinds:
+        pre, dec = mods["attn" if kind in ("global", "local") else kind]
+        want[pre] += 1
+        want[dec] += 10
+    assert {m: m.LAUNCHES for m in want} == want

@@ -101,3 +101,46 @@ def test_embed_unembed(softcap):
                       softcap),
            TL.unembed({"table": torch.from_numpy(table)},
                       torch.from_numpy(x), softcap))
+
+
+@pytest.mark.parametrize("shape,eps", [((2, 7, 64), 1e-6), ((1, 9, 2560), 1e-5)])
+def test_layernorm(shape, eps):
+    r = _rng(5)
+    x = r.standard_normal(shape).astype(np.float32) * 3 + 1
+    p = {"scale": r.standard_normal(shape[-1]).astype(np.float32),
+         "bias": r.standard_normal(shape[-1]).astype(np.float32)}
+    _close(JL.layernorm({k: jnp.asarray(v) for k, v in p.items()},
+                        jnp.asarray(x), eps),
+           TL.layernorm({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x), eps))
+    init = TL.init_layernorm(shape[-1], torch.float32, "cpu")
+    want = JL.init_layernorm(shape[-1], jnp.float32)
+    for k in ("scale", "bias"):
+        _close(want[k], init[k])
+
+
+@pytest.mark.parametrize("S,window,H,KVH,hd,q_block", [
+    (40, 8, 4, 1, 16, 16),          # recurrentgemma SMOKE-like, MQA
+    (70, 24, 4, 2, 32, 32),         # ragged last q block
+    (33, 32, 2, 2, 64, 512),        # one q block (q_block > S)
+])
+def test_banded_local_attention(S, window, H, KVH, hd, q_block):
+    """The port's banded attention against JAX's, and against the windowed
+    flash path it stands in for; ``flash_attention`` takes the band on the
+    CPU exactly when the window binds."""
+    r = _rng(6)
+    q = r.standard_normal((2, S, H, hd)).astype(np.float32)
+    k = r.standard_normal((2, S, KVH, hd)).astype(np.float32)
+    v = r.standard_normal((2, S, KVH, hd)).astype(np.float32)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    out = TL.banded_local_attention(qt, kt, vt, window=window,
+                                    q_block=q_block)
+    _close(JL.banded_local_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), window=window,
+                                         q_block=q_block), out)
+    windowed = TL.flash_attention_blocked(qt, kt, vt, causal=True,
+                                          window=window, kv_block=128)
+    assert float((windowed - out).abs().max()) < ATOL
+    routed = TL.flash_attention(qt, kt, vt, causal=True, window=window)
+    _close(JL.banded_local_attention_jnp(jnp.asarray(q), jnp.asarray(k),
+                                         jnp.asarray(v), window=window), routed)

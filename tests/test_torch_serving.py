@@ -1,7 +1,9 @@
 """The port's serving runtime on the CPU: engine consistency (mirrors of
 tests/test_serving.py), greedy tokens equal to the JAX engine's at fp32 on
-bridged params, and a WorkerServer pair that fails over from the full
-model to its warm w050 replica."""
+bridged params (qwen2.5-3b), a reused slot giving the JAX model's fresh
+tokens (the recurrent archs, where the JAX engine leaks state between
+requests), and a WorkerServer pair that fails over from the full model to
+its warm w050 replica."""
 
 import sys
 import threading
@@ -29,6 +31,7 @@ from repro_torch.serving.router import Router  # noqa: E402
 from repro_torch.serving.server import WorkerServer  # noqa: E402
 
 ARCH = "qwen2.5-3b"
+ARCHS = [ARCH, "recurrentgemma-2b", "rwkv6-3b"]
 CPU = torch.device("cpu")
 
 
@@ -41,8 +44,9 @@ def _drain(eng):
         eng.step()
 
 
-def test_engine_matches_forward():
-    cfg = configs.get_smoke(ARCH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_matches_forward(arch):
+    cfg = configs.get_smoke(arch)
     params = _params(cfg)
     eng = InferenceEngine(cfg, params, batch_slots=2, max_len=48,
                           device=CPU)
@@ -63,8 +67,9 @@ def test_engine_matches_forward():
     assert req.tokens == toks
 
 
-def test_engine_slot_reuse_and_concurrency():
-    cfg = configs.get_smoke(ARCH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_slot_reuse_and_concurrency(arch):
+    cfg = configs.get_smoke(arch)
     eng = InferenceEngine(cfg, _params(cfg), batch_slots=2, max_len=48,
                           device=CPU)
     reqs = [Request(id=f"r{i}", prompt=np.arange(1, 9, dtype=np.int32),
@@ -104,6 +109,40 @@ def test_engine_tokens_equal_jax_engine():
     assert outs[0] == outs[1]
 
 
+@pytest.mark.parametrize("arch", ARCHS[1:])
+def test_reused_slot_tokens_equal_jax_model(arch):
+    """Each request's greedy tokens, served on slots that earlier requests
+    used and that sat through decode steps while empty, equal the JAX
+    model's own prefill + decode from a fresh cache. (The JAX engine does
+    not pass this: it resets only ``pos`` on admission.)"""
+    cj, ct = jconfigs.get_smoke(arch), configs.get_smoke(arch)
+    pj = JM.init_params(jax.random.PRNGKey(0), cj)
+    pt = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, pj), CPU)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cj.vocab_size, n).astype(np.int32)
+               for n in (5, 11, 8, 16, 3)]
+    n_new = (8, 3, 6, 5, 6)
+    eng = InferenceEngine(ct, pt, batch_slots=2, max_len=48, device=CPU)
+    reqs = [Request(id=f"r{i}", prompt=p, max_new_tokens=n)
+            for i, (p, n) in enumerate(zip(prompts, n_new))]
+    for group in (reqs[:2], reqs[2:4], reqs[4:]):
+        for r in group:
+            assert eng.try_admit(r)
+        _drain(eng)
+    prefill = jax.jit(JM.prefill, static_argnums=1)
+    decode = jax.jit(JM.decode_step, static_argnums=1)
+    for r in reqs:
+        cache = JM.init_cache(cj, 1, 48)
+        logits, cache = prefill(pj, cj, jax.numpy.asarray(r.prompt[None]),
+                                cache)
+        want = [int(np.argmax(logits[0]))]
+        for _ in range(r.max_new_tokens):
+            logits, cache = decode(
+                pj, cj, jax.numpy.asarray([want[-1]], np.int32), cache)
+            want.append(int(np.argmax(logits[0])))
+        assert r.tokens == want, r.id
+
+
 def _wait(pred, timeout=60.0):
     t0 = time.monotonic()
     while not pred():
@@ -113,8 +152,9 @@ def _wait(pred, timeout=60.0):
     return True
 
 
-def test_worker_pair_fails_over_to_warm_replica():
-    cfg = configs.get_smoke(ARCH)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_worker_pair_fails_over_to_warm_replica(arch):
+    cfg = configs.get_smoke(arch)
     ladder = build_ladder(cfg)
     app = Application(id="app0", family=cfg.name, variants=ladder)
     full, w050 = app.full, app.variant_by_name(f"{cfg.name}:w050")
