@@ -7,7 +7,7 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
-1. build: the four CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+1. build: the five CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
    one ``nvcc`` each, all at once;
 2. kernels: each against its plain PyTorch version on the card —
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
@@ -34,7 +34,26 @@ and prints no result):
    against the model's own prefill/decode on B's params. Kernel launch
    counters are zeroed before and read after each serving run and must
    show one launch per layer of each kind per prefill and per decode step.
-   Each arch is unloaded before the next one loads.
+   Each arch is unloaded before the next one loads;
+5. the simulator's failover planning (the greedy planner's ``torch``
+   backend, whose worst-fit reduction is K5, the masked argmax): K5
+   exactly equal to its plain version (index and value) for S in
+   ``ARGMAX_SIZES`` x float32/float64 x empty/sparse/dense/all-tied masks,
+   one row and (8, S) rows over one shared column, the dense ones timed
+   beside the plain version, the bound and ``torch.where`` +
+   ``torch.argmax`` (a yardstick, printed only); ``plan_greedy_torch`` on
+   the card equal to the port's numpy planner (assignments, their order,
+   the unplaced list, the objective bits) on 20 random instances per
+   state dtype; and tools/bench_scale.py's 1000-server x 10,000-app cell
+   through ``Simulation(SimConfig(planner="greedy",
+   planner_backend=...)).setup().run_named_scenario("site-outage")`` on
+   the torch backend and on numpy in this process from one seed, their
+   recovery records, placements and traffic summaries equal. It prints
+   each backend's plan wall, peak failover plan phase, rounds and K5
+   launches per round, all from these two unprofiled runs, and the
+   device idle share of one failover round from a third, profiled torch
+   run that replays the round before planning it. K5's counter is
+   zeroed just before the first torch run and read after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -112,8 +131,28 @@ KERNELS = {
         "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
         "rwkv6-3b full S=256"),
+    "planner_argmax": (
+        "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
+        "src/repro/kernels/planner_argmax/planner_argmax.py:29",
+        "(8,1000) float64 dense"),
 }
-NO_LIBRARY = "none: no single PyTorch call computes this recurrence"
+NO_LIBRARY = {
+    "rglru_scan": "none: no single PyTorch call computes this recurrence",
+    "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
+    "planner_argmax": "none (no single PyTorch call)",
+}
+# phase 5: K5 at the planner's column lengths (servers) and past them, one
+# row and the (V, S) rows the planner asks for at once
+ARGMAX_SIZES = (6, 1000, 10000, 100000)
+ARGMAX_ROWS = 8
+PLANNER_INSTANCES = 20             # random instances per state dtype
+# the simulator's first full scale cell (tools/bench_scale.py:56-58): 1000
+# servers in 20 sites of 50, ~10,000 apps, server memory sized so the
+# primaries fill half the cluster, headroom 0.2, traffic at rate scale 2.0
+# in 0.5 s chunks, the epoch drain, the site-outage scenario
+SIM_CELL = dict(n_servers=1000, n_apps=10000, per_site=50, rate_scale=2.0,
+                chunk_s=0.5, scenario="site-outage")
+AVG_FULL_MEM, PRIMARY_UTIL = 2.3e9, 0.5     # tools/bench_scale.py:46-47
 
 
 def log(*a):
@@ -787,6 +826,325 @@ def phase_serve(arch):
     return res, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the simulator's failover planning on the card (K5)
+# ---------------------------------------------------------------------------
+
+def phase_argmax():
+    """K5 against its plain version, exactly, at every size, dtype and mask
+    kind, one row and (ARGMAX_ROWS, S) rows over one shared column; the
+    dense rows timed beside the plain version and the bound."""
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    rows = {}
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=DEV)
+
+    n_checked = 0
+    for S in ARGMAX_SIZES:
+        for dt in (torch.float32, torch.float64):
+            x = torch.randn(S, generator=g, device=DEV).to(dt)
+            for kind in ("empty", "sparse", "dense", "all-tied"):
+                v = torch.full_like(x, 0.5) if kind == "all-tied" else x
+                for n in (0, ARGMAX_ROWS):
+                    shape = (n, S) if n else (S,)
+                    mask = {"empty": torch.zeros(shape, dtype=torch.bool,
+                                                 device=DEV),
+                            "sparse": rand(*shape) < 0.01,
+                            "dense": rand(*shape) < 0.7,
+                            "all-tied": torch.ones(shape, dtype=torch.bool,
+                                                   device=DEV)}[kind]
+                    vals = v.expand(n, S) if n else v
+                    i, val = k5.masked_argmax(vals, mask)
+                    pi, pv = k5.masked_argmax_torch(vals, mask)
+                    if not (torch.equal(i, pi) and torch.equal(val, pv)):
+                        raise AssertionError(
+                            f"planner_argmax {shape} {dt} {kind}: "
+                            f"{i.tolist()} {val.tolist()} vs plain "
+                            f"{pi.tolist()} {pv.tolist()}")
+                    n_checked += 1
+                    if kind != "dense":
+                        continue
+                    name = str(dt).replace("torch.", "")
+                    tag = f"({n},{S}) {name} dense" if n else \
+                        f"({S},) {name} dense"
+                    # each input byte read once (the shared column once),
+                    # each output written once; one comparison per mask
+                    # entry, no arithmetic
+                    n_bytes = (v.numel() * v.element_size() + mask.numel()
+                               + max(n, 1) * (4 + v.element_size()))
+                    rows[tag] = timed_row(
+                        f"values {tag.split(' ')[0]}"
+                        + (" (one shared column, row stride 0)" if n
+                           else "") + f" {name}, mask bool 70% set", 0.0,
+                        functools.partial(k5.masked_argmax, vals, mask),
+                        functools.partial(k5.masked_argmax_torch, vals,
+                                          mask), None, n_bytes,
+                        mask.numel(), PEAK_FP32_FLOPS)
+                    # a yardstick only: where + argmax is not the same
+                    # function (an empty mask gives index 0, not -1)
+                    rows[tag]["where_argmax_ms"] = graph_ms(
+                        lambda: torch.where(mask, vals, float("-inf"))
+                        .argmax(-1))
+    torch.cuda.synchronize()
+    log(f"  K5 equal to its plain version (index and value) on "
+        f"{n_checked} cases: S in {ARGMAX_SIZES} x float32/float64 x "
+        f"empty/sparse/dense/all-tied x (S,) and ({ARGMAX_ROWS}, S)")
+    for tag, r in rows.items():
+        log(f"  planner_argmax {tag} [{r['shape']}]: device ms kernel "
+            f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library none "
+            f"(torch.where + torch.argmax {r['where_argmax_ms']:.5f}), "
+            f"bound {r['bound_ms']:.6f} ({r['bound_by']}); eager call "
+            f"{r['eager_ms']:.5f} ms")
+    return rows
+
+
+def planner_instance(rng, tc, tv):
+    """A random planning round on 100 servers in 4 sites: 20-300 apps of
+    2-6 variants, pre-placed primaries, a few dead servers, server and
+    site exclusions, an alpha."""
+    cluster = tc.make_cluster(4, 25, mem=rng.uniform(4e9, 16e9),
+                              compute=rng.uniform(0.5, 2.0))
+    apps = [tv.Application(
+        id=f"a{i}", family=f"f{i}",
+        variants=tv.synthetic_family(f"f{i}", rng.uniform(0.3e9, 6e9),
+                                     n_variants=rng.randint(2, 6),
+                                     spread=rng.uniform(1.5, 12.0)),
+        request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5)
+        for i in range(rng.randint(20, 300))]
+    sids = list(cluster.servers)
+    for a in apps[::3]:
+        sid = rng.choice(sids)
+        if cluster.servers[sid].fits(a.variants[-1].demand):
+            cluster.place(a.id, a.variants[-1], sid, "primary")
+    for sid in rng.sample(sids, rng.randint(0, 10)):
+        cluster.fail_server(sid)
+    exclude = {a.id: {rng.choice(sids)} for a in apps if rng.random() < 0.7}
+    site_exclude = {a.id: {f"site{rng.randrange(4)}"} for a in apps
+                    if rng.random() < 0.3}
+    return cluster, apps, dict(exclude=exclude, site_exclude=site_exclude,
+                               alpha=rng.choice([0.0, 0.1, 0.25]))
+
+
+def phase_planner():
+    """plan_greedy_torch on the card against the port's numpy planner:
+    assignments, their order, the unplaced list and the objective bits."""
+    import random
+
+    from repro_torch.core import cluster as tc
+    from repro_torch.core import variants as tv
+    from repro_torch.core.planner import PlannerState, plan_greedy
+    from repro_torch.core.planner.torch_backend import (TorchPlanContext,
+                                                        plan_greedy_torch)
+
+    # one context for every instance, though each reuses the ids a0, a1,
+    # ... with other ladders: its demand cache must follow the new apps
+    ctx = TorchPlanContext()
+    n_apps = n_placed = 0
+    for dtype in ("float64", "float32"):
+        for seed in range(PLANNER_INSTANCES):
+            cluster, apps, kw = planner_instance(random.Random(seed), tc, tv)
+            r_np = plan_greedy(apps, cluster, state=PlannerState(
+                cluster, subscribe=False, dtype=dtype), **kw)
+            r_t = plan_greedy_torch(apps, cluster, state=PlannerState(
+                cluster, subscribe=False, dtype=dtype), ctx=ctx, **kw)
+            got = ([(k, v.name, s) for k, (v, s) in r_t.assignment.items()],
+                   r_t.unplaced, r_t.objective.hex())
+            want = ([(k, v.name, s) for k, (v, s) in
+                     r_np.assignment.items()], r_np.unplaced,
+                    r_np.objective.hex())
+            if got != want:
+                raise AssertionError(f"plan_greedy_torch {dtype} seed "
+                                     f"{seed}: differs from numpy")
+            n_apps += len(apps)
+            n_placed += len(r_np.assignment)
+    log(f"  plan_greedy_torch on the card equals numpy on "
+        f"{2 * PLANNER_INSTANCES} instances (float64 and float32, "
+        f"{n_apps} apps, {n_placed} placed): assignments, order, unplaced, "
+        f"objective bits")
+
+
+def sim_config(backend):
+    from repro_torch.core.simulation import SimConfig
+
+    c = SIM_CELL
+    return SimConfig(
+        n_sites=c["n_servers"] // c["per_site"],
+        servers_per_site=c["per_site"],
+        server_mem=c["n_apps"] * AVG_FULL_MEM / (c["n_servers"]
+                                                 * PRIMARY_UTIL),
+        headroom=0.2, seed=SEED, planner="greedy", planner_dtype="float64",
+        planner_backend=backend, traffic_rate_scale=c["rate_scale"],
+        traffic_chunk_s=c["chunk_s"], event_mode="epoch")
+
+
+def profile_round(planner, req, n=3):
+    """One failover round's planning, replayed from its request before the
+    round itself runs (a round is a pure function of the state it reads),
+    in a run of its own whose plan walls are not reported: a first replay
+    that also syncs the failed servers' rows into the device mirror, then
+    the host wall of unprofiled replays ending in their host reads, and
+    the device busy time of a profiled one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.planner.torch_backend import plan_greedy_torch
+
+    exclude, site_exclude = req.exclusions()
+
+    def replay():
+        return plan_greedy_torch(req.apps, req.cluster, state=req.state,
+                                 exclude=exclude, site_exclude=site_exclude,
+                                 alpha=req.alpha, ctx=planner._ctx)
+
+    replay()                                   # the row sync, once
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    kern = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda kv: -kv[1])
+    busy = sum(t for _, t in kern)
+    n_kernels = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0)
+    wall = statistics.median(walls)
+    return {"n_apps": len(req.apps), "wall_ms": wall,
+            "device_kernels": n_kernels,
+            "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+            "k5_device_ms": sum(t for k, t in kern
+                                if "masked_argmax" in k),
+            "top": [(k[:50], t) for k, t in kern[:5]]}
+
+
+def run_sim(backend, k5, profile=False):
+    """One run of the cell through the simulator's entry points, each
+    planning round recorded (apps, plan wall, K5 launches, failover or
+    not); with ``profile`` the first failover round is also profiled
+    (``profile_round``), and the run's walls then include the replays."""
+    from repro_torch.core.simulation import Simulation
+
+    t0 = time.perf_counter()
+    sim = Simulation(sim_config(backend))
+    ctl = sim.controller
+    planner = ctl.fast_planner                # greedy: also ctl.planner
+    rounds, flag = [], {"failover": False, "profile": None}
+    plan, handle_failures = planner.plan, ctl.handle_failures
+
+    def failover(*a, **kw):
+        flag["failover"] = True
+        try:
+            return handle_failures(*a, **kw)
+        finally:
+            flag["failover"] = False
+
+    def recorded_plan(req):
+        if (profile and flag["failover"] and req.apps
+                and flag["profile"] is None):
+            flag["profile"] = profile_round(planner, req)
+        n0 = k5.LAUNCHES
+        res = plan(req)
+        rounds.append({"n_apps": len(req.apps), "wall_s": res.wall_s,
+                       "k5": k5.LAUNCHES - n0,
+                       "failover": flag["failover"]})
+        return res
+
+    planner.plan = recorded_plan
+    ctl.handle_failures = failover
+    sim.setup()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = sim.run_named_scenario(SIM_CELL["scenario"])
+    run_s = time.perf_counter() - t0
+    return sim, res, rounds, flag["profile"], setup_s, run_s
+
+
+def sim_records(sim, res):
+    ctl = sim.controller
+    epochs = [sorted((r.epoch, r.app_id, r.recovered, r.mttr, r.variant,
+                      r.mode, r.upgraded_to) for r in ep.values())
+              for ep in ctl.epoch_records]
+    placement = (dict(ctl.primaries),
+                 {a: (v.name, sid) for a, (v, sid, _k) in ctl.warm.items()})
+    return epochs, placement, res.fingerprint(), res.overall
+
+
+def phase_sim():
+    """The cell on the torch backend (K5 on the card) and on numpy, in this
+    process from one seed; the records, the placement and the traffic
+    summary must be equal. K5's counter is zeroed just before the torch
+    run and read just after it. Both runs are unprofiled, so their plan
+    walls compare like for like; a third run on the torch backend
+    profiles a replay of its first failover round for the device idle
+    share, and reports no wall."""
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    out = {}
+    k5.LAUNCHES = 0
+    runs = {"torch": run_sim("torch", k5)}
+    launches = k5.LAUNCHES
+    runs["numpy"] = run_sim("numpy", k5)
+    prof = run_sim("torch", k5, profile=True)[3]
+    if prof is None:
+        raise AssertionError("the profiled torch run had no failover "
+                             "round to profile")
+    for backend, (sim, res, rounds, _, setup_s, run_s) in runs.items():
+        fail = [r for r in rounds if r["failover"] and r["n_apps"]]
+        stats = sim.controller.planner_stats()
+        out[backend] = {
+            "n_apps": len(sim.apps), "n_servers": len(sim.cluster.servers),
+            "setup_s": setup_s, "run_s": run_s,
+            "plan_wall_s": sim.controller.plan_wall_s,
+            "plan_peak_s": max((r.phases.get("plan", 0.0)
+                                for r in res.records), default=0.0),
+            "rounds": len(rounds), "rounds_with_apps": sum(
+                1 for r in rounds if r["n_apps"]),
+            "setup_round": rounds[0] if rounds else None,
+            "failover_rounds": fail,
+            "torch_rounds": stats["torch_rounds"],
+            "numpy_rounds": stats["numpy_rounds"],
+            "n_records": len(res.records),
+            "recovery_rate": res.overall["recovery_rate"]}
+        log(f"  {backend}: {json.dumps(out[backend])}")
+    if sim_records(*runs["torch"][:2]) != sim_records(*runs["numpy"][:2]):
+        raise AssertionError("the cell's records differ between the torch "
+                             "and numpy planner backends")
+    t = out["torch"]
+    if not t["torch_rounds"] or not launches:
+        raise AssertionError("the torch run planned no round on the card")
+    t["k5_launches"] = launches
+    log(f"  records, placement and traffic summary equal between torch and "
+        f"numpy ({t['n_records']} records, recovery rate "
+        f"{t['recovery_rate']}); K5 launches on the torch run {launches} in "
+        f"{t['torch_rounds']} rounds ({launches / t['torch_rounds']:.1f} "
+        f"per round)")
+    for name in ("torch", "numpy"):
+        o = out[name]
+        log(f"  {name}: plan_wall_s {o['plan_wall_s']:.6f}, peak failover "
+            f"plan phase {o['plan_peak_s']:.6f} s, setup {o['setup_s']:.3f} "
+            f"s, scenario {o['run_s']:.3f} s")
+    t["profiled_failover_round"] = p = prof
+    log(f"  one failover round on the card, replayed in a third run "
+        f"({p['n_apps']} apps): host wall "
+        f"{p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
+        f"device idle share {p['idle_share']:.4f}; {p['device_kernels']} "
+        f"device kernels and copies ({p['device_kernels'] / p['n_apps']:.1f} "
+        f"per app); K5 device {p['k5_device_ms']:.3f} ms; top "
+        f"{json.dumps(p['top'])}")
+    return out, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -845,12 +1203,24 @@ def main() -> int:
                 f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}")
         log(f"  phase 4 {arch} took {time.monotonic() - t0:.1f} s")
 
+    log("phase 5: the simulator's failover planning on the card (K5)")
+    t0 = time.monotonic()
+    rows["planner_argmax"] = phase_argmax()
+    phase_planner()
+    _, k5_launches = phase_sim()
+    log(f"  phase 5 took {time.monotonic() - t0:.1f} s")
+
     kernels = []
     for name, (src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
-        by_path = {f"{arch}:{tag}": n[name] for arch, runs in launches.items()
-                   for tag, n in runs.items() if n[name]}
-        main_path = sum(launches[arch]["A"][name] for arch in ARCHS)
+        if name == "planner_argmax":
+            by_path = {f"sim {SIM_CELL['scenario']} torch": k5_launches}
+            main_path = k5_launches
+        else:
+            by_path = {f"{arch}:{tag}": n[name]
+                       for arch, runs in launches.items()
+                       for tag, n in runs.items() if n[name]}
+            main_path = sum(launches[arch]["A"][name] for arch in ARCHS)
         if not main_path:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
@@ -862,7 +1232,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "peak": r["peak"],
-            **({"library": NO_LIBRARY} if r["library_ms"] is None else {}),
+            **({"library": NO_LIBRARY[name]} if r["library_ms"] is None
+               else {}),
             "launches_by_path": by_path,
             "rows": {tag: {k: x[k] for k in ("shape", "ms", "plain_ms",
                                              "library_ms", "bound_ms",

@@ -178,3 +178,20 @@ class Application:
             self.__dict__["_demand_matrix"] = dm
         return dm
 
+
+def synthetic_family(name: str, full_mem: float, n_variants: int = 4,
+                     spread: float = 4.0) -> List[Variant]:
+    """Profile-only ladder (no ModelConfig) for large-scale simulation.
+
+    `spread` = mem ratio between largest and smallest (the paper's
+    Small/Medium/Large family classes differ exactly in this spread).
+    """
+    out = []
+    for i in range(n_variants):
+        ratio = spread ** (-i / max(1, n_variants - 1))
+        mem = full_mem * ratio
+        acc = ratio ** ACC_EXP
+        out.append(Variant(
+            name=f"{name}:v{i}", family=name, mem_bytes=mem,
+            compute=mem / 32e9, accuracy=acc))   # ~50% compute at 50% mem
+    return out

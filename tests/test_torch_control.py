@@ -145,12 +145,34 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 25
+    assert len(mods) >= 45
     assert {"repro_torch.models.rglru", "repro_torch.models.rwkv6",
             "repro_torch.kernels.rglru_scan.ops",
             "repro_torch.kernels.rwkv6_scan.ops",
             "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.configs.rwkv6_3b"} <= mods
+    assert {f"repro_torch.core.{m}" for m in PLANNING_COPIES + (
+        "controller", "simulation", "planner.kernels",
+        "planner.torch_backend", "planner.policies")} <= mods
+    assert {"repro_torch.kernels.planner_argmax.ops",
+            "repro_torch.kernels.planner_argmax.ref"} <= mods
+
+
+# control-plane modules of the simulator's planning path that the port
+# copies verbatim (only the imports name repro_torch)
+PLANNING_COPIES = ("cluster", "planner.base", "planner.state",
+                   "planner.vectorized", "datastore", "modelstate",
+                   "metrics", "resilience", "traffic", "scenario", "chaos")
+
+
+@pytest.mark.parametrize("mod", PLANNING_COPIES)
+def test_planning_modules_are_verbatim_copies(mod):
+    """Each copy equals its original once ``repro_torch`` reads
+    ``repro``: a change to either side shows here."""
+    rel = Path(*mod.split(".")).with_suffix(".py")
+    orig = (ROOT / "src" / "repro" / "core" / rel).read_text()
+    copy = (ROOT / "src" / "repro_torch" / "core" / rel).read_text()
+    assert copy.replace("repro_torch", "repro") == orig
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked_for():

@@ -6,7 +6,8 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1/K2 f32 2e-5, bf16 2e-2 and K3 1e-5, K4 5e-4 (those of
-tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3.
+tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3. K5
+(the planner's masked argmax) and the torch planner backend are exact.
 """
 
 import numpy as np
@@ -177,3 +178,77 @@ def test_model_on_card_matches_cpu(cuda, arch):
         want[pre] += 1
         want[dec] += 10
     assert {m: m.LAUNCHES for m in want} == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_planner_argmax_matches_plain_on_cuda(cuda, dtype):
+    """K5 equals its plain version exactly (index and value): random,
+    tied and all-equal values under sparse, dense, empty and full masks,
+    one row and (V, S) rows sharing one column."""
+    from repro_torch.kernels.planner_argmax import ops as k5
+    dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    k5.LAUNCHES = 0
+    n_calls = 0
+    for S in (1, 6, 513, 1000, 10000):
+        x = torch.randn(S, generator=g, device=cuda).to(dt)
+        for v in (x, x.round(), torch.full_like(x, 0.5)):
+            for mask in (torch.rand(S, generator=g, device=cuda) < 0.1,
+                         torch.rand(S, generator=g, device=cuda) < 0.7,
+                         torch.zeros(S, dtype=torch.bool, device=cuda),
+                         torch.ones(S, dtype=torch.bool, device=cuda)):
+                i, val = k5.masked_argmax(v, mask)
+                pi, pv = k5.masked_argmax_torch(v, mask)
+                assert torch.equal(i, pi) and torch.equal(val, pv)
+                rows = torch.rand((8, S), generator=g, device=cuda) < 0.5
+                rows[2] = False
+                i, val = k5.masked_argmax(v.expand(8, S), rows)
+                pi, pv = k5.masked_argmax_torch(v.expand(8, S), rows)
+                assert torch.equal(i, pi) and torch.equal(val, pv)
+                n_calls += 2
+    torch.cuda.synchronize()
+    assert k5.LAUNCHES == n_calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_torch_planner_on_card_matches_numpy(cuda, dtype):
+    """plan_greedy_torch on the card equals the port's numpy planner:
+    assignments, their order and the Eq. 1 objective bits."""
+    import random
+
+    from repro_torch.core.cluster import make_cluster
+    from repro_torch.core.planner import PlannerState, plan_greedy
+    from repro_torch.core.planner.torch_backend import (TorchPlanContext,
+                                                        plan_greedy_torch)
+    from repro_torch.core.variants import Application, synthetic_family
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    ctx = TorchPlanContext(cuda)
+    for seed in range(6):
+        rng = random.Random(seed)
+        cluster = make_cluster(4, 25, mem=24e9)
+        apps = [Application(
+            id=f"a{i}", family=f"f{i}",
+            variants=synthetic_family(f"f{i}", rng.uniform(0.3e9, 6e9),
+                                      n_variants=rng.randint(2, 6),
+                                      spread=rng.uniform(1.5, 12.0)),
+            request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5)
+            for i in range(rng.randint(50, 400))]
+        sids = list(cluster.servers)
+        exclude = {a.id: {rng.choice(sids)} for a in apps}
+        for sid in rng.sample(sids, 10):
+            cluster.fail_server(sid)
+        kw = dict(exclude=exclude, alpha=rng.choice([0.0, 0.1]))
+        r_np = plan_greedy(apps, cluster, state=PlannerState(
+            cluster, subscribe=False, dtype=dtype), **kw)
+        k5.LAUNCHES = 0
+        r_t = plan_greedy_torch(apps, cluster, state=PlannerState(
+            cluster, subscribe=False, dtype=dtype), ctx=ctx, **kw)
+        assert k5.LAUNCHES == len(apps)
+        assert {k: (v.name, s) for k, (v, s) in r_np.assignment.items()} \
+            == {k: (v.name, s) for k, (v, s) in r_t.assignment.items()}
+        assert list(r_np.assignment) == list(r_t.assignment)
+        assert r_np.unplaced == r_t.unplaced
+        assert r_np.objective == r_t.objective
