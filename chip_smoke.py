@@ -7,26 +7,36 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
-1. build: the five CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+1. build: the six CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
    one ``nvcc`` each, all at once;
 2. kernels: each against its plain PyTorch version on the card —
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
    tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
    and K4 (WKV-6, f32 5e-4, bf16 2e-2) on the sweeps of
    tests/test_kernels.py, and each at the shapes of every ladder rung that
-   phase 4 serves (heads, KV heads, head_dim and window of each attention
-   rung, one prompt where recurrentgemma-2b's window binds; the LRU width
-   and the WKV heads of each recurrent rung; from a nonzero state). The
-   main-path shapes are timed in bf16 beside the plain version, the bound,
-   and, for K1/K2, PyTorch's ``scaled_dot_product_attention`` (a yardstick
-   the port never calls);
+   phases 4 and 6 serve (heads, KV heads, head_dim and window of each
+   attention rung, one prompt where recurrentgemma-2b's window binds; the
+   LRU width and the WKV heads of each recurrent rung; from a nonzero
+   state), the testbed's smoke rungs (head_dim 16) in f32. The main-path
+   shapes are timed in bf16 (the smoke rungs in f32) beside the plain
+   version, the bound, and, for K1/K2, PyTorch's
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   K6 (the weight-only int8 matmul, which no model calls, as in the JAX
+   package) on the sweep of tests/test_kernels.py:102-104 in f32 and bf16
+   and at qwen3-32b's MLP shapes in bf16, within 10x the K1 tolerances,
+   timed beside its plain version, the bound and
+   ``torch._weight_int8pack_mm`` (a yardstick); its launches are counted
+   on a standalone int8 SwiGLU over qwen3-32b's quantized MLP weights;
 3. model parity, fp32, card (kernels) against CPU (plain path): qwen2.5-3b
    (2 layers), recurrentgemma-2b (one (rglru, rglru, local) cycle plus an
    (rglru, rglru) tail, a 2100-token prompt so the local layer's window
-   binds and its ring buffer wraps) and rwkv6-3b (2 layers, 250 tokens),
-   all at full width, prefill and three decode steps;
-4. serve and fail over, for each of qwen2.5-3b, recurrentgemma-2b and
-   rwkv6-3b in turn: worker A serves the ladder's ``:full`` rung (bf16) to
+   binds and its ring buffer wraps), rwkv6-3b (2 layers, 250 tokens),
+   qwen3-32b (2 layers, qk_norm) and qwen3-moe-30b-a3b (2 layers, 128
+   experts top-8), all at full width, prefill and three decode steps;
+4. serve and fail over, for each of qwen2.5-3b, recurrentgemma-2b,
+   rwkv6-3b and qwen3-32b (32 of its 64 layers: two full-width copies do
+   not fit 80 GB at full depth) in turn: worker A serves the ladder's
+   ``:full`` rung (bf16) to
    4 requests, its tokens are held against the model's own prefill/decode,
    a fifth request on a reused slot against a fresh engine, A is killed,
    the heartbeat detector reports it, the router moves the app to worker
@@ -53,7 +63,21 @@ and prints no result):
    launches per round, all from these two unprofiled runs, and the
    device idle share of one failover round from a third, profiled torch
    run that replays the round before planning it. K5's counter is
-   zeroed just before the first torch run and read after it.
+   zeroed just before the first torch run and read after it;
+6. the live failover testbed through the port's entry points, on the
+   card: (a) ``run_experiment(ExperimentSpec(backend="testbed", ...))``
+   on tests/test_experiment.py:185's spec with the default arch list
+   (all five testbed archs on their smoke ladders, 3 sites x 2 servers),
+   then the same spec on the ``sim`` backend: equal failover choices
+   (``recovery_by_app()``), recovery rate 1, detection under 1 s, a
+   finite client MTTR, no error other than a dead server, and K1-K5 each
+   launched during the testbed run (counters zeroed just before it, read
+   just after); (b) a ``MiniTestbed`` of two critical apps at full width
+   (qwen2.5-3b's published config, qwen3-32b's published widths at 8
+   layers) whose qwen3-32b primary is killed: that app recovers and its
+   clients are served after the kill; it prints the recovered variant,
+   detection, client downtime, the measured load seconds, the plan wall
+   and the peak memory allocated.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -107,12 +131,32 @@ WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8)]  # :82-86
 # :w050 that phase 4 serves, and qwen2.5-3b's w075 as a reference row
 RUNGS = {"qwen2.5-3b": ("full", "w075", "w050"),
          "recurrentgemma-2b": ("full", "w050"),
-         "rwkv6-3b": ("full", "w050")}
+         "rwkv6-3b": ("full", "w050"),
+         "qwen3-32b": ("full", "w050")}
 PREFILL_LENS = (128, 256, 512)
 BINDING_LEN = 2100          # a prompt past recurrentgemma-2b's window 2048
 SLOTS, MAX_LEN, NEW_TOKENS = 4, 512, 32
 DECODE_LENS = [97, 161, 288, 512]
-ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b")
+ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-32b")
+# phase 4's depth cuts: qwen3-32b's :full at 64 layers is ~65.5 GB of bf16
+# weights and its :w050 ~17 GB more, which do not fit 80 GB together
+SERVE_LAYERS = {"qwen3-32b": 32}
+# phase 6: tests/test_experiment.py:185's testbed spec with the default
+# arch list, and the full-width testbed's depth of qwen3-32b (the card
+# holds up to four copies of the largest rung at once: primary, warm
+# backup, the re-protection load and the killed worker's engine)
+TESTBED_SPEC = dict(scenario="single-server", app_mix="arch", archs=None,
+                    n_sites=3, servers_per_site=2, headroom=0.35,
+                    client_hz=20.0, time_scale=0.25, settle_s=25.0, seed=1)
+FULL_TESTBED_LAYERS = {"qwen2.5-3b": None, "qwen3-32b": 8}
+# the testbed's smoke ladders serve f32 engines of 2 slots x 96 positions
+# with 8-token prompts (serving/server.py, serving/workload.py)
+SMOKE_SLOTS, SMOKE_MAX_LEN, SMOKE_PROMPT = 2, 96, 8
+# K6 at qwen3-32b's MLP: gate/up (M, 5120) x (5120, 25600) and down
+# (M, 25600) x (25600, 5120), at decode (4 slots) and a 256-token prefill
+INT8_SWEEP = [(100, 300, 200), (64, 128, 64), (33, 65, 130)]  # :102-104
+INT8_MLP = {"gate/up": (5120, 25600), "down": (25600, 5120)}
+INT8_M = (SLOTS, 256)
 # name -> (source, TPU kernel it replaces, headline row of the JSON line)
 KERNELS = {
     "flash_attention": (
@@ -135,7 +179,16 @@ KERNELS = {
         "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
         "src/repro/kernels/planner_argmax/planner_argmax.py:29",
         "(8,1000) float64 dense"),
+    "int8_matmul": (
+        "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
+        "src/repro/kernels/int8_matmul/int8_matmul.py:24",
+        "qwen3-32b gate/up M=4"),
 }
+INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
+# the smoke :full rungs whose K1/K2 shapes phase 2 times (the attention
+# archs of the testbed's default list)
+TESTBED_SMOKE_TIMED = ("qwen2.5-3b", "qwen3-32b", "recurrentgemma-2b",
+                       "qwen3-moe-30b-a3b")
 NO_LIBRARY = {
     "rglru_scan": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
@@ -159,8 +212,15 @@ def log(*a):
     print(*a, flush=True)
 
 
+def all_ops():
+    """Every kernel's wrapper module, by kernel name."""
+    from repro_torch.kernels.int8_matmul import ops as k6
+    from repro_torch.kernels.planner_argmax import ops as k5
+    return {**ops_modules(), "planner_argmax": k5, "int8_matmul": k6}
+
+
 def ops_modules():
-    """The four kernels' wrapper modules, by kernel name."""
+    """The four serving kernels' wrapper modules, by kernel name."""
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rglru_scan import ops as rg
@@ -252,10 +312,35 @@ def timed_row(shape, e, kern, plain, lib, n_bytes, flops, peak,
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def kernel_args(c):
+    """The serving kernels' shapes for one model config: ``{kernel: args}``
+    with args (H, KVH, hd, window) for K1/K2, the LRU width for K3 and
+    (heads, head size) for K4."""
+    from repro_torch.models.model import ATTN_KINDS
+
+    kinds = set(c.layer_kinds())
+    out = {}
+    if kinds & set(ATTN_KINDS):
+        window = c.window_size if "local" in kinds else 0
+        out["flash_attention"] = out["decode_attention"] = (
+            c.num_heads, c.num_kv_heads, c.head_dim, window)
+    if "rglru" in kinds:
+        out["rglru_scan"] = c.rnn_width
+    if "rwkv" in kinds:
+        hs = c.rwkv_head_size
+        out["rwkv6_scan"] = (c.d_model // hs, hs)
+    return out
+
+
+def smoke_full_config(arch):
+    """The config of the testbed's smoke ``:full`` rung of ``arch``."""
+    from repro_torch.experiment.workload import testbed_ladder
+    return testbed_ladder(arch)[0].config
+
+
 def rung_shapes():
     """Each kernel's shapes on the rungs of ``RUNGS``, from the ladder the
-    workers load: ``{kernel: [(tag, args), ...]}`` with args (H, KVH, hd,
-    window) for K1/K2, the LRU width for K3 and (heads, head size) for K4."""
+    workers load: ``{kernel: [(tag, args), ...]}``."""
     from repro_torch import configs
     from repro_torch.core.variants import build_ladder
 
@@ -264,19 +349,38 @@ def rung_shapes():
         ladder = {v.name: v.config
                   for v in build_ladder(configs.get_config(arch))}
         for rung in rungs:
-            c, tag = ladder[f"{arch}:{rung}"], f"{arch} {rung}"
-            kinds = set(c.layer_kinds())
-            if kinds & {"global", "local"}:
-                window = c.window_size if "local" in kinds else 0
-                args = (c.num_heads, c.num_kv_heads, c.head_dim, window)
-                out["flash_attention"].append((tag, args))
-                out["decode_attention"].append((tag, args))
-            if "rglru" in kinds:
-                out["rglru_scan"].append((tag, c.rnn_width))
-            if "rwkv" in kinds:
-                hs = c.rwkv_head_size
-                out["rwkv6_scan"].append((tag, (c.d_model // hs, hs)))
+            for k, args in kernel_args(ladder[f"{arch}:{rung}"]).items():
+                out[k].append((f"{arch} {rung}", args))
     return out
+
+
+def testbed_rung_shapes():
+    """Each serving kernel's distinct shapes on every rung phase 6 can
+    load: ``(smoke, full)``, each ``{kernel: sorted args}`` — the smoke
+    ladders of the five testbed archs (f32, head_dim 16) and the
+    full-width ladders of phase 6 (b). Rungs whose query heads do not
+    divide among their KV heads (ROADMAP R8: the smoke :w075 of qwen2.5-3b
+    and qwen3-moe-30b-a3b) are left out: no model of either package
+    builds them, so no worker loads them."""
+    from repro_torch import configs
+    from repro_torch.core.variants import build_ladder
+    from repro_torch.experiment.workload import TESTBED_ARCHS, testbed_ladder
+
+    def collect(ladders):
+        out = {k: set() for k in ops_modules()}
+        for ladder in ladders:
+            for v in ladder:
+                c = v.config
+                if c.num_heads and c.num_heads % c.num_kv_heads:
+                    continue
+                for k, args in kernel_args(c).items():
+                    out[k].add(args)
+        return {k: sorted(v) for k, v in out.items()}
+
+    smoke = collect(testbed_ladder(a) for a in TESTBED_ARCHS)
+    full = collect(build_ladder(configs.get_config(a)) for a in
+                   FULL_TESTBED_LAYERS)
+    return smoke, full
 
 
 def phase_kernels():
@@ -323,21 +427,42 @@ def phase_kernels():
         return r, k, v, lw, rnd((NH, hs)) * 0.3, rnd((B, NH, hs, hs)) * 0.3
 
     shapes = rung_shapes()
+    smoke, full6 = testbed_rung_shapes()
+    attn = sorted({a for _, a in shapes["flash_attention"]}
+                  | set(full6["flash_attention"]))
     flash_rungs = [(1, S, S, H, KVH, hd, True, window)
-                   for _, (H, KVH, hd, window) in shapes["flash_attention"]
+                   for H, KVH, hd, window in attn
                    for S in (256,) + ((BINDING_LEN,) if window else ())]
     decode_rungs = [(SLOTS, H, KVH, hd, MAX_LEN, 0)
-                    for _, (H, KVH, hd, _w) in shapes["decode_attention"]]
+                    for H, KVH, hd, _w in attn]
     wkv_rungs = [(B, NH, S, hs) for _, (NH, hs) in shapes["rwkv6_scan"]
                  for B, S in ((1, 256), (SLOTS, 1))]
     scan_rungs = [(B, S, W) for _, W in shapes["rglru_scan"]
                   for B, S in ((1, 256), (SLOTS, 1))]
+    # the testbed's smoke rungs, in f32 as they are served: an 8-token
+    # prompt, a longer one where the local window (8) binds, and decode
+    # over 2 slots of the 96-position cache (the local ring: its window)
+    smoke_flash = [(SMOKE_SLOTS, S, S, H, KVH, hd, True, window)
+                   for H, KVH, hd, window in smoke["flash_attention"]
+                   for S in (SMOKE_PROMPT, 33)]
+    smoke_decode = [(SMOKE_SLOTS, H, KVH, hd,
+                     min(window, SMOKE_MAX_LEN) if window else SMOKE_MAX_LEN,
+                     0) for H, KVH, hd, window in smoke["decode_attention"]]
+    smoke_wkv = [(B, NH, S, hs) for NH, hs in smoke["rwkv6_scan"]
+                 for B, S in ((1, SMOKE_PROMPT), (SMOKE_SLOTS, 1))]
+    smoke_scan = [(B, S, W) for W in smoke["rglru_scan"]
+                  for B, S in ((1, SMOKE_PROMPT), (SMOKE_SLOTS, 1))]
+    log(f"  the testbed's smoke rungs: K1/K2 (H, KVH, hd, window) "
+        f"{smoke['flash_attention']}, K3 widths {smoke['rglru_scan']}, K4 "
+        f"(heads, head size) {smoke['rwkv6_scan']}; phase 6 (b)'s "
+        f"full-width rungs {full6['flash_attention']}")
 
     # -- sweeps and every rung's shapes, both dtypes where the kernel takes
     # them ------------------------------------------------------------------
     for name, dt in dts.items():
+        smoke_only = name == "float32"
         for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP + \
-                flash_rungs:
+                flash_rungs + (smoke_flash if smoke_only else []):
             q, k, v = (rnd((B, Sq, H, hd), dt), rnd((B, Skv, KVH, hd), dt),
                        rnd((B, Skv, KVH, hd), dt))
             check("flash_attention", err(
@@ -346,7 +471,8 @@ def phase_kernels():
                 flash_plain(q, k, v, causal, window)), ATOL[name],
                 f"{name} B={B} S={Sq} H={H} KVH={KVH} hd={hd} "
                 f"causal={causal} window={window}")
-        for B, H, KVH, hd, Smax, window in DECODE_SWEEP + decode_rungs:
+        for B, H, KVH, hd, Smax, window in DECODE_SWEEP + decode_rungs + \
+                (smoke_decode if smoke_only else []):
             q, kc, vc = (rnd((B, 1, H, hd), dt), rnd((B, Smax, KVH, hd), dt),
                          rnd((B, Smax, KVH, hd), dt))
             lens = torch.randint(1, Smax + 1, (B,), generator=g, device=dev,
@@ -356,7 +482,8 @@ def phase_kernels():
                 dec_plain(q, kc, vc, lens, window)), ATOL[name],
                 f"{name} B={B} H={H} KVH={KVH} hd={hd} Smax={Smax} "
                 f"window={window}")
-        for B, NH, S, hs in WKV_SWEEP + wkv_rungs:
+        for B, NH, S, hs in WKV_SWEEP + wkv_rungs + \
+                (smoke_wkv if smoke_only else []):
             r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, dt)
             y_ref, s_ref = wkv6_ref(r, k, v, lw, u, s0)
             state = s0.clone()
@@ -365,7 +492,7 @@ def phase_kernels():
             check("rwkv6_scan", max(err(y, y_ref), err(state, s_ref)), tol,
                   f"{name} B={B} NH={NH} S={S} hs={hs} from a nonzero "
                   "state")
-    for B, S, W in SCAN_SWEEP + scan_rungs:
+    for B, S, W in SCAN_SWEEP + scan_rungs + smoke_scan:
         a, b, h0 = scan_inputs(B, S, W)
         h_ref, hl_ref = rglru_scan_ref(a, b, h0)
         state = h0.clone()
@@ -377,12 +504,13 @@ def phase_kernels():
     bf16 = torch.bfloat16
     rows = {k: {} for k in KERNELS}
 
-    def flash_row(tag, H, KVH, hd, S, window):
-        q, k, v = (rnd((1, S, H, hd), bf16), rnd((1, S, KVH, hd), bf16),
-                   rnd((1, S, KVH, hd), bf16))
+    def flash_row(tag, H, KVH, hd, S, window, dt=bf16, B=1):
+        q, k, v = (rnd((B, S, H, hd), dt), rnd((B, S, KVH, hd), dt),
+                   rnd((B, S, KVH, hd), dt))
         e = err(fa_ops.flash_attention(q, k, v, causal=True, window=window),
                 flash_plain(q, k, v, True, window))
-        if not e < ATOL["bfloat16"]:
+        dname = str(dt).replace("torch.", "")
+        if not e < ATOL[dname]:
             raise AssertionError(f"flash_attention {tag}: {e}")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
         pos = torch.arange(S, device=dev)
@@ -398,35 +526,36 @@ def phase_kernels():
             lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
                                     vt, is_causal=True, enable_gqa=True)
         rows["flash_attention"][tag] = timed_row(
-            f"q (1,{S},{H},{hd}) k/v (1,{S},{KVH},{hd}) bf16 causal"
+            f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KVH},{hd}) {dname} causal"
             + (f" window {window}" if window else ""), e,
             functools.partial(fa_ops.flash_attention, q, k, v, causal=True,
                               window=window),
             lambda: flash_plain(q, k, v, True, window), lib,
-            nbytes(q, k, v, q), 4 * hd * H * pairs, PEAK_BF16_FLOPS)
+            nbytes(q, k, v, q), 4 * hd * H * pairs * B, PEAK_BF16_FLOPS)
 
-    def decode_row(tag, H, KVH, hd):
-        q = rnd((SLOTS, 1, H, hd), bf16)
-        kc, vc = (rnd((SLOTS, MAX_LEN, KVH, hd), bf16),
-                  rnd((SLOTS, MAX_LEN, KVH, hd), bf16))
-        lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    def decode_row(tag, H, KVH, hd, dt=bf16, B=SLOTS, Smax=MAX_LEN,
+                   lens_list=DECODE_LENS):
+        q = rnd((B, 1, H, hd), dt)
+        kc, vc = (rnd((B, Smax, KVH, hd), dt), rnd((B, Smax, KVH, hd), dt))
+        lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
         e = err(dec_ops.decode_attention(q, kc, vc, lens),
                 dec_plain(q, kc, vc, lens, 0))
-        if not e < ATOL["bfloat16"]:
+        dname = str(dt).replace("torch.", "")
+        if not e < ATOL[dname]:
             raise AssertionError(f"decode_attention {tag}: {e}")
-        mask = (torch.arange(MAX_LEN, device=dev)[None, :]
+        mask = (torch.arange(Smax, device=dev)[None, :]
                 < lens[:, None])[:, None, None, :]
         qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
         n_keys = int(lens.sum())
         rows["decode_attention"][tag] = timed_row(
-            f"q ({SLOTS},1,{H},{hd}) cache ({SLOTS},{MAX_LEN},{KVH},{hd}) "
-            f"bf16 lens {DECODE_LENS}", e,
+            f"q ({B},1,{H},{hd}) cache ({B},{Smax},{KVH},{hd}) "
+            f"{dname} lens {lens_list}", e,
             functools.partial(dec_ops.decode_attention, q, kc, vc, lens),
             lambda: dec_plain(q, kc, vc, lens, 0),
             functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
                               attn_mask=mask, enable_gqa=True),
-            2 * (2 * q.numel() + 2 * n_keys * KVH * hd) + 4 * SLOTS,
-            4 * hd * H * n_keys, PEAK_BF16_FLOPS)
+            q.element_size() * (2 * q.numel() + 2 * n_keys * KVH * hd)
+            + 4 * B, 4 * hd * H * n_keys, PEAK_BF16_FLOPS)
 
     def scan_row(tag, B, S, W):
         a, b, h0 = scan_inputs(B, S, W)
@@ -469,6 +598,21 @@ def phase_kernels():
             flash_row(f"{tag} S={S}", H, KVH, hd, S, window)
     for tag, (H, KVH, hd, _w) in shapes["decode_attention"]:
         decode_row(f"{tag} decode", H, KVH, hd)
+    # the testbed's smoke :full rungs, f32 as they are served
+    seen = set()
+    for arch in TESTBED_SMOKE_TIMED:
+        c = smoke_full_config(arch)
+        H, KVH, hd, window = kernel_args(c)["flash_attention"]
+        if (H, KVH, window) in seen:
+            continue
+        seen.add((H, KVH, window))
+        tag = f"{arch} smoke full"
+        flash_row(f"{tag} S={SMOKE_PROMPT}", H, KVH, hd, SMOKE_PROMPT,
+                  window, dt=torch.float32)
+        Smax = min(window, SMOKE_MAX_LEN) if window else SMOKE_MAX_LEN
+        decode_row(f"{tag} decode", H, KVH, hd, dt=torch.float32,
+                   B=SMOKE_SLOTS, Smax=Smax,
+                   lens_list=[min(SMOKE_PROMPT + 1, Smax), min(40, Smax)])
     for rung, W in shapes["rglru_scan"]:
         scan_row(f"{rung} S=256", 1, 256, W)
         scan_row(f"{rung} decode", SLOTS, 1, W)
@@ -487,6 +631,115 @@ def phase_kernels():
                 f"max_abs_err {r['max_abs_err']:.3g}")
     torch.cuda.synchronize()
     return rows
+
+
+def int8_library():
+    """The yardstick for K6: one PyTorch call that computes the same
+    function, ``torch._weight_int8pack_mm`` (w as (N, K) int8, the scale
+    in x's dtype) where this torch has it for CUDA, else a bf16 matmul of
+    the widened weight times the scale. Timed, never called by the port."""
+    x = torch.zeros((4, 64), dtype=torch.bfloat16, device=DEV)
+    try:
+        torch._weight_int8pack_mm(x, torch.zeros((32, 64), dtype=torch.int8,
+                                                 device=DEV),
+                                  torch.ones(32, dtype=x.dtype, device=DEV))
+    except (AttributeError, RuntimeError, NotImplementedError):
+        return ("torch.matmul(x, w_q.to(x.dtype)) * scale",
+                lambda x, wq, wqt, sc, scx: torch.matmul(
+                    x, wq.to(x.dtype)) * scx)
+    return ("torch._weight_int8pack_mm",
+            lambda x, wq, wqt, sc, scx: torch._weight_int8pack_mm(
+                x, wqt, scx))
+
+
+def int8_swiglu(k6, x, layer):
+    """A standalone use of K6: one SwiGLU MLP whose three weights are
+    int8 with per-channel scales (``quantize_int8``), every product a K6
+    launch. ``layer`` holds (w_q, scale) for gate, up and down."""
+    g = k6.int8_matmul(x, *layer["gate"])
+    u = k6.int8_matmul(x, *layer["up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    return k6.int8_matmul(h, *layer["down"])
+
+
+def phase_int8():
+    """K6 against its plain version: the sweep of tests/test_kernels.py
+    in f32 and bf16, and qwen3-32b's MLP shapes in bf16, timed beside the
+    plain version, the bound and the library yardstick; then a standalone
+    int8 SwiGLU at those shapes, the only launches counted. Returns (rows,
+    launches of the standalone run)."""
+    from repro_torch.kernels.int8_matmul import ops as k6
+
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def quantized(K, N):
+        w = torch.randn((K, N), generator=g, device=DEV) * 0.05
+        return k6.quantize_int8(w)
+
+    for name, dt in dts.items():
+        for M, K, N in INT8_SWEEP:
+            x = torch.randn((M, K), generator=g, device=DEV).to(dt)
+            wq, sc = quantized(K, N)
+            e = err(k6.int8_matmul(x, wq, sc),
+                    k6.int8_matmul_torch(x, wq, sc))
+            log(f"  int8_matmul {name} ({M},{K})x({K},{N}): max_abs_err "
+                f"{e:.3g}")
+            if not e < 10 * ATOL[name]:
+                raise AssertionError(f"int8_matmul {name} {(M, K, N)}: {e}")
+
+    lib_name, lib = int8_library()
+    bf16 = torch.bfloat16
+    rows, layer = {}, {}
+    for part, (K, N) in INT8_MLP.items():
+        wq, sc = quantized(K, N)
+        wqt, scx = wq.t().contiguous(), sc.to(bf16)
+        layer.update({p: (wq, sc) for p in
+                      (("gate", "up") if part == "gate/up" else ("down",))})
+        for M in INT8_M:
+            x = torch.randn((M, K), generator=g, device=DEV).to(bf16)
+            out = k6.int8_matmul(x, wq, sc)
+            e = err(out, k6.int8_matmul_torch(x, wq, sc))
+            if not e < 10 * ATOL["bfloat16"]:
+                raise AssertionError(f"int8_matmul {part} M={M}: {e}")
+            r = timed_row(
+                f"x ({M},{K}) bf16 @ w_q ({K},{N}) int8 * scale ({N},) f32",
+                e, functools.partial(k6.int8_matmul, x, wq, sc),
+                functools.partial(k6.int8_matmul_torch, x, wq, sc),
+                functools.partial(lib, x, wq, wqt, sc, scx),
+                nbytes(x, wq, sc, out), 2 * M * N * K, PEAK_BF16_FLOPS,
+                plain_reps=5)
+            r["library"] = lib_name
+            rows[f"qwen3-32b {part} M={M}"] = r
+            log(f"  int8_matmul qwen3-32b {part} M={M} [{r['shape']}]: "
+                f"device ms kernel {r['ms']:.5f}, plain "
+                f"{r['plain_ms']:.5f}, library ({lib_name}) "
+                f"{r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
+                f"({r['bound_by']}, bf16 tensor core peak); eager call "
+                f"{r['eager_ms']:.5f} ms; max_abs_err {e:.3g}")
+
+    # the standalone path: an int8 SwiGLU at decode and prefill, counted
+    xs = {M: torch.randn((M, INT8_MLP["gate/up"][0]), generator=g,
+                         device=DEV).to(bf16) for M in INT8_M}
+    k6.LAUNCHES = 0
+    outs = {M: int8_swiglu(k6, x, layer) for M, x in xs.items()}
+    torch.cuda.synchronize()
+    launches = k6.LAUNCHES
+    for M, x in xs.items():
+        ref = k6.int8_matmul_torch(x, *layer["gate"])
+        h = F.silu(ref.float()).to(bf16) * k6.int8_matmul_torch(
+            x, *layer["up"])
+        ref = k6.int8_matmul_torch(h, *layer["down"])
+        e = err(outs[M], ref)
+        rel = e / float(ref.float().abs().max())
+        log(f"  int8 SwiGLU (qwen3-32b MLP, M={M}): max_abs_err {e:.3g} "
+            f"against the plain products ({rel:.3g} of the largest output)")
+        if not rel < 2e-2:
+            raise AssertionError(f"int8 SwiGLU M={M}: {e} ({rel})")
+    if launches != 3 * len(INT8_M):
+        raise AssertionError(f"int8 SwiGLU launched K6 {launches} times")
+    log(f"  K6 launches on the standalone int8 SwiGLU: {launches}")
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -542,6 +795,9 @@ def phase_parity():
     # of 2048 slots wraps in the prefill and again in the decode steps
     out["recurrentgemma-2b"] = parity("recurrentgemma-2b", 5, 2100, 2200)
     out["rwkv6-3b"] = parity("rwkv6-3b", 2, 250, 256)
+    out["qwen3-32b"] = parity("qwen3-32b", 2, 16, 32)
+    # 2 x 16 tokens over 128 experts top-8: capacity 8 slots an expert
+    out["qwen3-moe-30b-a3b"] = parity("qwen3-moe-30b-a3b", 2, 16, 32)
     return out
 
 
@@ -684,8 +940,10 @@ def device_profile(MDL, eng, prompt_len=256, n=5):
 
 def expected_launches(cfg, n_prefills, n_steps):
     """One launch per layer of each kind per prefill and per decode step."""
+    from repro_torch.models.model import ATTN_KINDS
+
     kinds = cfg.layer_kinds()
-    attn = sum(k in ("global", "local") for k in kinds)
+    attn = sum(k in ATTN_KINDS for k in kinds)
     rec = {"rglru_scan": kinds.count("rglru"),
            "rwkv6_scan": kinds.count("rwkv")}
     out = {"flash_attention": attn * n_prefills,
@@ -703,6 +961,8 @@ def phase_serve(arch):
     from repro_torch.serving.server import WorkerServer
 
     cfg = configs.get_config(arch)
+    if arch in SERVE_LAYERS:
+        cfg = cfg.replace(num_layers=SERVE_LAYERS[arch])
     ops = ops_modules()
     app = Application(id=f"{arch}/app0", family=cfg.name,
                       variants=build_ladder(cfg))
@@ -1145,6 +1405,156 @@ def phase_sim():
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the live failover testbed through the entry points, on the card
+# ---------------------------------------------------------------------------
+
+def phase_testbed_smoke():
+    """tests/test_experiment.py:185's spec with the default arch list on
+    the port's testbed backend, then on its sim backend. Every kernel
+    counter is zeroed just before the testbed run and read just after."""
+    from repro_torch.experiment import ExperimentSpec, run_experiment
+
+    ops = all_ops()
+    spec = ExperimentSpec(backend="testbed", **TESTBED_SPEC)
+    for m in ops.values():
+        m.LAUNCHES = 0
+    t0 = time.monotonic()
+    tb = run_experiment(spec)
+    launches = {k: m.LAUNCHES for k, m in ops.items()}
+    tb_wall = time.monotonic() - t0
+    sim = run_experiment(spec.with_(backend="sim"))
+    t = tb.traffic
+    stats = tb.extras["client_stats"]
+    out = {"recovery_by_app": {a: list(v) for a, v in
+                               tb.recovery_by_app().items()},
+           "recovery_rate": tb.overall["recovery_rate"],
+           "detect_latency_s": tb.detect_latency_s,
+           "client_mttr_avg_s": t.client_mttr_avg,
+           "availability": t.availability, "n_offered": t.n_offered,
+           "clients_ok": {a: st.ok for a, st in stats.items()},
+           "load_calibration": tb.extras["load_calibration"],
+           "plan_wall_s": tb.plan_wall_s, "planner": tb.extras["planner"],
+           "load_errors": tb.extras["load_errors"],
+           "refused_no_slot": tb.extras["refused_no_slot"], "wall_s": tb_wall,
+           "launches": launches}
+    log("  " + json.dumps({"testbed_smoke": out}, default=str))
+    if tb.recovery_by_app() != sim.recovery_by_app():
+        raise AssertionError(f"testbed {tb.recovery_by_app()} != sim "
+                             f"{sim.recovery_by_app()}")
+    if tb.extras["load_errors"]:
+        raise AssertionError(f"testbed errors: {tb.extras['load_errors']}")
+    if tb.overall["recovery_rate"] != 1.0:
+        raise AssertionError(f"recovery rate {tb.overall['recovery_rate']}")
+    if not 0.0 < tb.detect_latency_s < 1.0:
+        raise AssertionError(f"detection {tb.detect_latency_s} s")
+    if not (np.isfinite(t.client_mttr_avg) and t.client_mttr_avg > 0):
+        raise AssertionError(f"client MTTR {t.client_mttr_avg}")
+    if not all(st.ok > 0 for st in stats.values()):
+        raise AssertionError(f"an app's clients got no answer: {stats}")
+    idle = [k for k in KERNELS if k != "int8_matmul" and not launches[k]]
+    if idle:
+        raise AssertionError(f"{idle} never launched in the testbed run")
+    log(f"  testbed == sim failover choices {tb.recovery_by_app()}; "
+        f"recovery rate 1.0, detection {tb.detect_latency_s * 1e3:.2f} ms, "
+        f"client MTTR {t.client_mttr_avg * 1e3:.2f} ms, availability "
+        f"{t.availability:.6f} of {t.n_offered} requests "
+        f"({tb.extras['refused_no_slot']} refused for want of a free batch "
+        f"slot), no load error; "
+        f"testbed run {tb_wall:.1f} s; launches {json.dumps(launches)}")
+    return out, launches
+
+
+def phase_testbed_full():
+    """Two critical apps at full width, qwen3-32b's primary killed."""
+    import random
+
+    from repro_torch import configs
+    from repro_torch.core.variants import Application, build_ladder
+    from repro_torch.experiment import primary_kill_scenario
+    from repro_torch.serving.testbed import MiniTestbed
+
+    apps = []
+    for i, (arch, layers) in enumerate(FULL_TESTBED_LAYERS.items()):
+        cfg = configs.get_config(arch)
+        if layers:
+            cfg = cfg.replace(num_layers=layers)
+        apps.append(Application(id=f"{arch}-app{i}", family=arch,
+                                variants=build_ladder(cfg), critical=True))
+    victim = apps[-1].id
+    ops = all_ops()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for m in ops.values():
+        m.LAUNCHES = 0
+    tb = MiniTestbed(apps=apps, n_sites=3, servers_per_site=2,
+                     headroom=0.35, seed=SEED + 1)
+    loads = []                     # (server, variant, wall s) of each load
+
+    def timed(w, load):
+        def run(app, variant, *a, **kw):
+            wall = load(app, variant, *a, **kw)
+            loads.append((w.id, variant.name, wall))
+            return wall
+        return run
+
+    for w in tb.workers.values():
+        w.load = timed(w, w.load)
+    try:
+        t0 = time.monotonic()
+        tb.deploy()
+        deploy_s = time.monotonic() - t0
+        placed = {a: (v.name, sid) for a, (v, sid, _k) in
+                  tb.controller.warm.items()}
+        log(f"  deployed in {deploy_s:.1f} s: primaries "
+            f"{json.dumps(dict(tb.controller.primaries))}, warm {placed}")
+        scenario = primary_kill_scenario(victim, t_fail=2.0, horizon=5.0)(
+            tb.cluster, tb.apps, random.Random(SEED))
+        out = tb.run_scenario(scenario, time_scale=1.0, settle_s=120.0,
+                              client_hz=10.0)
+        t_kill = min(tb._kill_times.values())
+    finally:
+        tb.shutdown()
+    launches = {k: m.LAUNCHES for k, m in ops.items()}
+    peak = torch.cuda.max_memory_allocated()
+    recs = [r for r in out["records"] if r.app_id == victim]
+    st = out["client_stats"][victim]
+    res = {"victim": victim,
+           "recovered": [(r.recovered, r.mode, r.variant, r.upgraded_to)
+                         for r in recs],
+           "phases_s": [r.phases for r in recs],
+           "detect_latency_s": out["detect_latency_s"],
+           "client_downtime_s": st.downtime, "client_ok": st.ok,
+           "client_failed": st.failed,
+           "load_calibration": out["load_calibration"], "loads_s": loads,
+           "plan_wall_s": tb.controller.plan_wall_s,
+           "max_memory_allocated_bytes": peak, "deploy_s": deploy_s,
+           "load_errors": out["load_errors"],
+           "refused_no_slot": out["refused_no_slot"],
+           "availability": out["traffic"].availability,
+           "n_offered": out["traffic"].n_offered, "launches": launches}
+    log("  " + json.dumps({"testbed_full_width": res}, default=str))
+    if out["load_errors"]:
+        raise AssertionError(f"testbed errors: {out['load_errors']}")
+    if not recs or not all(r.recovered for r in recs):
+        raise AssertionError(f"{victim} did not recover: {recs}")
+    if st.last_ok is None or st.last_ok <= t_kill:
+        raise AssertionError(f"{victim}'s clients were not served after "
+                             "the kill")
+    if not (launches["flash_attention"] and launches["decode_attention"]):
+        raise AssertionError(f"attention kernels not launched: {launches}")
+    r = recs[-1]
+    log(f"  {victim} recovered ({r.mode}) on {r.upgraded_to or r.variant}; "
+        f"detection {out['detect_latency_s'] * 1e3:.2f} ms, client "
+        f"downtime {st.downtime * 1e3:.2f} ms, loads (server, variant, s) "
+        f"{json.dumps(loads)}, load calibration "
+        f"{json.dumps(out['load_calibration'])}, plan wall "
+        f"{tb.controller.plan_wall_s * 1e3:.2f} ms, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB")
+    return res, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1182,6 +1592,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     t0 = time.monotonic()
     rows = phase_kernels()
+    rows["int8_matmul"], k6_launches = phase_int8()
     log(f"  phase 2 took {time.monotonic() - t0:.1f} s")
 
     log("phase 3: fp32 model parity at full width, card vs CPU")
@@ -1210,17 +1621,28 @@ def main() -> int:
     _, k5_launches = phase_sim()
     log(f"  phase 5 took {time.monotonic() - t0:.1f} s")
 
+    log("phase 6: the live failover testbed on the card")
+    t0 = time.monotonic()
+    _, tb_smoke = phase_testbed_smoke()
+    log(f"  phase 6 (a) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    _, tb_full = phase_testbed_full()
+    log(f"  phase 6 (b) took {time.monotonic() - t0:.1f} s")
+
     kernels = []
     for name, (src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
-        if name == "planner_argmax":
-            by_path = {f"sim {SIM_CELL['scenario']} torch": k5_launches}
-            main_path = k5_launches
+        if name == "int8_matmul":
+            by_path = {INT8_PATH: k6_launches}
         else:
             by_path = {f"{arch}:{tag}": n[name]
                        for arch, runs in launches.items()
-                       for tag, n in runs.items() if n[name]}
-            main_path = sum(launches[arch]["A"][name] for arch in ARCHS)
+                       for tag, n in runs.items() if n.get(name)}
+            if name == "planner_argmax":
+                by_path[f"sim {SIM_CELL['scenario']} torch"] = k5_launches
+            by_path["testbed smoke (phase 6a)"] = tb_smoke[name]
+            by_path["testbed full width (phase 6b)"] = tb_full[name]
+        main_path = sum(by_path.values())
         if not main_path:
             raise AssertionError(f"{name} was never launched on the main "
                                  "path")
@@ -1232,8 +1654,9 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"],
             "peak": r["peak"],
-            **({"library": NO_LIBRARY[name]} if r["library_ms"] is None
-               else {}),
+            "library": (NO_LIBRARY[name] if r["library_ms"] is None
+                        else r.get("library",
+                                   "scaled_dot_product_attention")),
             "launches_by_path": by_path,
             "rows": {tag: {k: x[k] for k in ("shape", "ms", "plain_ms",
                                              "library_ms", "bound_ms",

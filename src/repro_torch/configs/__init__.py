@@ -13,15 +13,15 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
+    "qwen3-32b": "qwen3_32b",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-3b": "rwkv6_3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
 }
 
 # archs of the JAX package that the port does not serve yet
 _PENDING = {
-    "qwen3-32b": "Queue 1, qwen3-32b (qk_norm)",
-    "qwen3-moe-30b-a3b": "Queue 1, MoE",
-    "arctic-480b": "Queue 1, MoE",
+    "arctic-480b": "Queue 1, remaining archs",
     "qwen1.5-4b": "Queue 1, remaining archs",
     "gemma3-27b": "Queue 1, remaining archs",
     "whisper-medium": "Queue 1, remaining archs",

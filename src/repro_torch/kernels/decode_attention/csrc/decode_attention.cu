@@ -135,7 +135,9 @@ __global__ void dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const int* __restrict__ lens, T* __restrict__ o,
                            int G, int Smax, Args a, float scale, int window) {
   constexpr int KS = HD + 1;
-  constexpr int DJ = HD / 32;
+  // output columns of a lane: lane + 32 jj; below 32 columns (head_dim 16)
+  // lane i reads column i % HD and only lanes i < HD store
+  constexpr int DJ = HD >= 32 ? HD / 32 : 1;
   extern __shared__ float smem[];
   float* sK = smem;             // BK x KS
   float* sV = sK + BK * KS;     // BK x HD
@@ -146,6 +148,7 @@ __global__ void dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nthreads = blockDim.x;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h = kvh * G + warp;
+  const int col = HD >= 32 ? lane : lane % HD;
 
   stage_rows<T, HD>(sQ, HD, q + b * a.qsb + kvh * G * a.qsh, a.qsh, G, G,
                     scale, threadIdx.x, nthreads);
@@ -195,14 +198,15 @@ __global__ void dec_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = pg[c];
 #pragma unroll
       for (int jj = 0; jj < DJ; ++jj)
-        acc[jj] = fmaf(p, sV[c * HD + lane + 32 * jj], acc[jj]);
+        acc[jj] = fmaf(p, sV[c * HD + col + 32 * jj], acc[jj]);
     }
   }
 
   const float li = fmaxf(l, 1e-30f);
   T* orow = o + b * a.osb + h * a.osh;
+  if (HD < 32 && lane >= HD) return;
 #pragma unroll
-  for (int jj = 0; jj < DJ; ++jj) orow[lane + 32 * jj] = from_f<T>(acc[jj] / li);
+  for (int jj = 0; jj < DJ; ++jj) orow[col + 32 * jj] = from_f<T>(acc[jj] / li);
 }
 
 template <typename T, int HD>
@@ -232,6 +236,8 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         int Smax, const Args& a, int window,
                         cudaStream_t stream) {
   switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, lens, o, B, H, KVH, Smax, a, window, stream);
     case 32:
       return launch<T, 32>(q, k, v, lens, o, B, H, KVH, Smax, a, window, stream);
     case 64:

@@ -17,7 +17,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 NAME = "decode_attention"
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32                     # one warp per query head of a group
 DTYPES = _build.DTYPE_CODES
 

@@ -33,6 +33,8 @@
 // At head_dim 256 (recurrentgemma-2b) the fp32 tiles take ~170 KB of
 // dynamic shared memory, so one block fits on an SM; its sliding-window
 // prefill (window 2048) visits only the KV tiles of each query tile's band.
+// head_dim 16 (the reduced configs the thread testbed serves) is the same
+// code at one output column per thread and row (DJ = 1).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -277,6 +279,9 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         Strides qs, Strides ks, Strides vs, Strides os,
                         int causal, int window, cudaStream_t stream) {
   switch (hd) {
+    case 16:
+      return launch<T, 16>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+                           causal, window, stream);
     case 32:
       return launch<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
                            causal, window, stream);

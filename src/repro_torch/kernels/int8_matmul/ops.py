@@ -1,0 +1,108 @@
+"""Wrapper of the weight-only int8 matmul kernel (K6,
+``csrc/int8_matmul.cu``), its plain PyTorch version, and the quantizer.
+
+``int8_matmul(x, w_q, scale)`` computes ``(x @ w_q) * scale`` with an
+fp32 sum: x (M, K) float32 or bfloat16, w_q (K, N) int8, scale (N,)
+float32 per output channel, out (M, N) in ``out_dtype`` (x's by
+default). A CUDA tensor launches the kernel on the current stream (no
+synchronize); a CPU tensor runs ``int8_matmul_torch``. There is no
+fallback from one to the other.
+
+As in the JAX package, no model or serving path calls it: the ladder's
+``:int8`` rungs only price their bytes (``ModelConfig.quant_bits``). It
+is a standalone kernel with its own tests.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+
+NAME = "int8_matmul"
+DTYPES = _build.DTYPE_CODES
+
+# kernel launches since the last reset; read and reset by chip_smoke.py
+LAUNCHES = 0
+_count_lock = threading.Lock()
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def _lib():
+    lib = _build.load(NAME)
+    fn = lib.faillite_int8_matmul
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 4 + [_I] * 5 + [_L, _P]
+    return fn
+
+
+def quantize_int8(w, axis=0):
+    """Symmetric per-channel int8 quantization along ``axis`` (the
+    contraction axis), as ``repro.kernels.int8_matmul.quantize_int8``:
+    the same fp32 arithmetic, round half to even, clip to +-127 and a
+    1e-8 floor on the scale. Returns (w_q int8 (K,N), scale f32 (N,))
+    with w ~= w_q * scale."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    w_q = torch.clamp(torch.round(wf / scale), -127, 127)
+    return w_q.to(torch.int8), scale.reshape(-1)
+
+
+def int8_matmul_torch(x, w_q, scale, *, out_dtype=None):
+    """The plain version: ``(x.float() @ w_q.float()) * scale``, cast to
+    the output dtype."""
+    return int8_matmul_ref(x, w_q, scale, out_dtype=out_dtype)
+
+
+def _check(x, w_q, scale, out_dtype):
+    if x.dim() != 2 or w_q.dim() != 2 or scale.dim() != 1:
+        raise ValueError(f"want x (M,K), w_q (K,N), scale (N,); got "
+                         f"{tuple(x.shape)}, {tuple(w_q.shape)}, "
+                         f"{tuple(scale.shape)}")
+    M, K = x.shape
+    Kw, N = w_q.shape
+    if Kw != K or scale.shape[0] != N or 0 in (M, K, N):
+        raise ValueError(f"x {tuple(x.shape)}, w_q {tuple(w_q.shape)} and "
+                         f"scale {tuple(scale.shape)} do not chain")
+    if not (x.device == w_q.device == scale.device):
+        raise ValueError("x, w_q and scale must be on one device")
+    if x.dtype not in DTYPES or out_dtype not in DTYPES:
+        raise TypeError(f"want float32 or bfloat16 x and output; got "
+                        f"{x.dtype}, {out_dtype}")
+    if w_q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"want int8 w_q and float32 scale; got {w_q.dtype}, "
+                        f"{scale.dtype}")
+
+
+def int8_matmul(x, w_q, scale, *, out_dtype=None):
+    """x: (M,K); w_q: (K,N) int8; scale: (N,) float32 -> (M,N)."""
+    global LAUNCHES
+    out_dtype = out_dtype or x.dtype
+    _check(x, w_q, scale, out_dtype)
+    if x.device.type == "cpu":
+        return int8_matmul_torch(x, w_q, scale, out_dtype=out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if x.stride(1) != 1 or not w_q.is_contiguous() \
+            or not scale.is_contiguous():
+        raise ValueError("x needs a unit column stride, w_q and scale must "
+                         "be contiguous")
+    M, K = x.shape
+    N = w_q.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+             DTYPES[x.dtype], DTYPES[out_dtype], M, N, K, x.stride(0),
+             stream)
+    _build.check(err, NAME)
+    with _count_lock:
+        LAUNCHES += 1
+    return out

@@ -80,7 +80,7 @@ def rope(x, positions, theta=10_000.0):
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA, causal)
+# Attention (GQA, causal; optional RMSNorm of q and k over head_dim)
 # --------------------------------------------------------------------------
 
 def init_attention(gen, cfg, device, dtype=None):
@@ -98,6 +98,9 @@ def init_attention(gen, cfg, device, dtype=None):
         p["bq"] = torch.zeros((h, hd), dtype=dtype, device=device)
         p["bk"] = torch.zeros((kv, hd), dtype=dtype, device=device)
         p["bv"] = torch.zeros((kv, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rmsnorm(hd, dtype, device)
+        p["k_norm"] = init_rmsnorm(hd, dtype, device)
     return p
 
 
@@ -107,6 +110,9 @@ def _qkv(params, cfg, x, positions):
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -7,8 +7,10 @@ layers). ``lax.scan`` over cycles becomes a Python loop over the stacked
 params; each layer reads its slice as a view.
 
 The kinds ``global``, ``local`` (sliding window over a ring-buffer KV
-cache), ``rglru`` (Griffin recurrent block) and ``rwkv`` (RWKV-6 time-mix
-and channel-mix) are ported. The cache — KV buffers and recurrent states
+cache), ``moe``/``moe_dense`` (global attention with a Mixture-of-Experts
+FFN, whose load-balancing aux loss ``forward`` returns), ``rglru``
+(Griffin recurrent block) and ``rwkv`` (RWKV-6 time-mix and channel-mix)
+are ported. The cache — KV buffers and recurrent states
 alike — is updated in place (``prefill`` and ``decode_step`` write into
 the tensors of the cache they are given and return that cache), which
 keeps one resident copy of the slot cache; the JAX functions return a new
@@ -24,29 +26,20 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig
 
-KINDS = ("global", "local", "rglru", "rwkv")
-
-# ROADMAP items that bring the layer kinds and features not ported yet
-_PENDING_KINDS = {
-    "moe": "Queue 1, MoE",
-    "moe_dense": "Queue 1, MoE",
-}
+KINDS = ("global", "local", "moe", "moe_dense", "rglru", "rwkv")
+ATTN_KINDS = ("global", "local", "moe", "moe_dense")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not serve yet."""
     for kind in cfg.block_pattern:
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet; see ROADMAP.md "
-                f"{_PENDING_KINDS[kind]}")
-    if cfg.qk_norm:
-        raise NotImplementedError(
-            "qk_norm is not ported yet; see ROADMAP.md Queue 1, qwen3-32b")
+            raise NotImplementedError(f"layer kind {kind!r} is unknown")
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise NotImplementedError(
             "encoder-decoder and patch-prefix models are not ported yet; "
@@ -66,6 +59,13 @@ def init_layer(gen, cfg: ModelConfig, kind: str, device) -> Dict[str, Any]:
             "attn": L.init_attention(gen, cfg, device),
             "norm2": L.init_rmsnorm(d, dt, device),
             "ffn": L.init_swiglu(gen, d, cfg.d_ff, dt, device),
+        }
+    if kind in ("moe", "moe_dense"):
+        return {
+            "norm1": L.init_rmsnorm(d, dt, device),
+            "attn": L.init_attention(gen, cfg, device),
+            "norm2": L.init_rmsnorm(d, dt, device),
+            "moe": M.init_moe(gen, cfg, device),
         }
     if kind == "rglru":
         return {
@@ -192,23 +192,31 @@ def _recurrent_layer(params, cfg, kind, x, state):
                         L.rmsnorm(params["norm2"], x, cfg.norm_eps))
 
 
+def _ffn(params, cfg, kind, xn):
+    """The attention kinds' FFN: (SwiGLU, None), or the MoE FFN and its
+    aux loss."""
+    if kind in ("moe", "moe_dense"):
+        return M.moe_ffn(params["moe"], cfg, xn)
+    return L.swiglu(params["ffn"], xn), None
+
+
 def layer_forward(params, cfg, kind, x, positions, cache=None):
     """Full-sequence layer apply. With a cache, the recurrent kinds start
     from its state and every kind leaves its state (K/V, ``h``/``conv``,
-    ``last``/``wkv``) in it, in place. Returns x."""
+    ``last``/``wkv``) in it, in place. Returns (x, aux loss or None)."""
     if kind in ("rwkv", "rglru"):
-        return _recurrent_layer(params, cfg, kind, x, cache)
+        return _recurrent_layer(params, cfg, kind, x, cache), None
 
     window = cfg.window_size if kind == "local" else 0
     xn = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
     q, k, v = L._qkv(params["attn"], cfg, xn, positions)
     o = L.flash_attention(q, k, v, causal=True, window=window)
     x = x + torch.einsum("bshk,hkd->bsd", o, params["attn"]["wo"])
-    xn = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-    x = x + L.swiglu(params["ffn"], xn)
+    h, aux = _ffn(params, cfg, kind, L.rmsnorm(params["norm2"], x,
+                                               cfg.norm_eps))
     if cache is not None:
         _write_kv_prefill(cache, kind, k, v)
-    return x
+    return x + h, aux
 
 
 def _kv_cache_len(cfg, kind, max_len):
@@ -251,8 +259,9 @@ def layer_decode(params, cfg, kind, x, pos, cache):
     filled = torch.clamp(pos + 1, max=W_).to(torch.int32)
     o = L.decode_attention(q, cache["k"], cache["v"], filled)
     x = x + torch.einsum("bshk,hkd->bsd", o, params["attn"]["wo"])
-    xn = L.rmsnorm(params["norm2"], x, cfg.norm_eps)
-    return x + L.swiglu(params["ffn"], xn)
+    h, _ = _ffn(params, cfg, kind, L.rmsnorm(params["norm2"], x,
+                                             cfg.norm_eps))
+    return x + h
 
 
 # ---------------------------------------------------------------------------
@@ -308,13 +317,17 @@ def _unembed(params, cfg, x):
 
 def forward(params, cfg: ModelConfig, tokens):
     """Full-sequence forward from zero state. Returns (logits, aux_loss)
-    as JAX does; aux is 0 for the ported kinds."""
+    as JAX does: aux is the sum of the MoE layers' load-balancing losses
+    (0 without MoE layers)."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p_l, _ in _layers(cfg, params):
-        x = layer_forward(p_l, cfg, kind, x, positions)
-    return _unembed(params, cfg, x), torch.zeros((), device=x.device)
+        x, a = layer_forward(p_l, cfg, kind, x, positions)
+        if a is not None:
+            aux = aux + a
+    return _unembed(params, cfg, x), aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache):
@@ -327,7 +340,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache):
     S = x.shape[1]
     positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
     for kind, p_l, c_l in _layers(cfg, params, cache):
-        x = layer_forward(p_l, cfg, kind, x, positions, cache=c_l)
+        x, _ = layer_forward(p_l, cfg, kind, x, positions, cache=c_l)
     logits = _unembed(params, cfg, x[:, -1:])
     cache["pos"] += S
     return logits[:, 0], cache

@@ -9,6 +9,12 @@ leaves batched decode to the worker thread, as in the JAX package.
 The weights are seeded with ``zlib.crc32`` of the variant name, so a
 variant loads the same weights in every process. (The JAX worker seeds
 with the salted ``hash()``, which differs between processes.)
+
+A dead cell raises ``WorkerDown``, and only that: the testbed treats it
+as "the server died mid-load", while any other exception (a kernel that
+fails to build or launch, an out-of-memory error, a bad config) is a
+fault it reports. An exception from a decode step on the worker thread
+is kept in ``errors`` instead of ending the thread silently.
 """
 
 from __future__ import annotations
@@ -16,8 +22,9 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import traceback
 import zlib
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -26,6 +33,10 @@ from repro_torch.core.variants import Application, Variant
 from repro_torch.device import DeviceLike, generator_for, resolve_device
 from repro_torch.models import model as MDL
 from repro_torch.serving.engine import InferenceEngine, Request
+
+
+class WorkerDown(RuntimeError):
+    """The serving cell is dead (killed before or during the call)."""
 
 
 def variant_seed(name: str) -> int:
@@ -38,7 +49,8 @@ class WorkerServer:
 
     def __init__(self, server_id: str, detector: FailureDetector, *,
                  heartbeat_s: float = 0.020, batch_slots: int = 2,
-                 max_len: int = 96, device: DeviceLike = None):
+                 max_len: int = 96, device: DeviceLike = None,
+                 errors: Optional[List[str]] = None):
         self.device = resolve_device(device)
         self.id = server_id
         self.detector = detector
@@ -52,6 +64,11 @@ class WorkerServer:
         self._threads = []
         self._lock = threading.Lock()
         self._work = queue.Queue()
+        # one line per exception raised by queued work (a decode step) on
+        # the worker thread; the testbed passes the list it reports
+        self.errors: List[str] = errors if errors is not None else []
+        # submits refused because every batch slot of the engine was busy
+        self.refused = 0
 
     # -- lifecycle -----------------------------------------------------------
     def start(self):
@@ -104,7 +121,13 @@ class WorkerServer:
                 continue
             if not self._alive.is_set():
                 return
-            fn()
+            try:
+                fn()
+            except Exception:                  # noqa: BLE001
+                traceback.print_exc()
+                self.errors.append(
+                    f"decode step on {self.id}: "
+                    f"{traceback.format_exc(limit=0).strip()}")
 
     # -- model management (Triton Load/Unload analogue) -----------------------
     def stage_cold(self, app: Application, variant: Variant):
@@ -116,7 +139,7 @@ class WorkerServer:
         """Draw params on the device + warm the engine; returns wall-clock
         load seconds."""
         if not self.alive:
-            raise RuntimeError(f"{self.id} is down")
+            raise WorkerDown(f"{self.id} is down")
         t0 = time.monotonic()
         cfg = variant.config
         if cfg is None:
@@ -132,17 +155,17 @@ class WorkerServer:
             torch.cuda.synchronize(self.device)
         with self._lock:
             if not self.alive:
-                raise RuntimeError(f"{self.id} died during load")
+                raise WorkerDown(f"{self.id} died during load")
             self.engines[variant.name] = eng
         return time.monotonic() - t0
 
     def install(self, variant_name: str, engine: InferenceEngine):
         """Adopt a pre-built engine."""
         if not self.alive:
-            raise RuntimeError(f"{self.id} is down")
+            raise WorkerDown(f"{self.id} is down")
         with self._lock:
             if not self.alive:
-                raise RuntimeError(f"{self.id} died during install")
+                raise WorkerDown(f"{self.id} died during install")
             self.engines[variant_name] = engine
 
     def unload(self, variant_name: str):
@@ -160,6 +183,8 @@ class WorkerServer:
         if eng is None or not self.alive:
             return False
         if not eng.try_admit(req):
+            with self._lock:
+                self.refused += 1
             return False
         self._work.put(lambda: self._drain(eng))
         return True

@@ -24,7 +24,8 @@ CFG_FIELDS = ("name", "num_layers", "d_model", "num_heads", "num_kv_heads",
               "depth_mult", "param_dtype", "activation_dtype", "rnn_width",
               "rnn_blocks", "window_size", "rwkv_head_size", "block_pattern",
               "tie_embeddings", "scale_embedding")
-ARCHS = ["qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b"]
+ARCHS = ["qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-32b",
+         "qwen3-moe-30b-a3b"]
 
 
 def test_configs_are_copies():
@@ -156,6 +157,16 @@ def test_port_imports_neither_jax_nor_repro():
         "planner.torch_backend", "planner.policies")} <= mods
     assert {"repro_torch.kernels.planner_argmax.ops",
             "repro_torch.kernels.planner_argmax.ref"} <= mods
+    assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_32b",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.kernels.int8_matmul.ops",
+            "repro_torch.kernels.int8_matmul.ref",
+            "repro_torch.serving.testbed", "repro_torch.serving.workload",
+            "repro_torch.experiment", "repro_torch.experiment.spec",
+            "repro_torch.experiment.result",
+            "repro_torch.experiment.backends",
+            "repro_torch.experiment.workload",
+            "repro_torch.experiment.cli", "repro_torch.__main__"} <= mods
 
 
 # control-plane modules of the simulator's planning path that the port
@@ -172,6 +183,18 @@ def test_planning_modules_are_verbatim_copies(mod):
     rel = Path(*mod.split(".")).with_suffix(".py")
     orig = (ROOT / "src" / "repro" / "core" / rel).read_text()
     copy = (ROOT / "src" / "repro_torch" / "core" / rel).read_text()
+    assert copy.replace("repro_torch", "repro") == orig
+
+
+# modules of the testbed's path that the port copies verbatim
+SERVING_COPIES = ("serving/workload.py", "experiment/workload.py",
+                  "experiment/result.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_COPIES)
+def test_testbed_modules_are_verbatim_copies(rel):
+    orig = (ROOT / "src" / "repro" / rel).read_text()
+    copy = (ROOT / "src" / "repro_torch" / rel).read_text()
     assert copy.replace("repro_torch", "repro") == orig
 
 
@@ -200,24 +223,29 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_archs_and_kinds_raise():
-    for arch in ("qwen3-32b", "qwen3-moe-30b-a3b", "gemma3-27b"):
+    for arch in ("arctic-480b", "gemma3-27b", "whisper-medium"):
         with pytest.raises(KeyError, match="ROADMAP"):
             tconfigs.get_config(arch)
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("nope")
     assert set(ARCHS) <= set(tconfigs.ARCHS)
+    from repro_torch.experiment.workload import TESTBED_ARCHS
+    assert set(TESTBED_ARCHS) <= set(tconfigs.ARCHS)
     from repro_torch.models import model as MDL
     from repro_torch.device import generator_for
     cfg = tconfigs.get_smoke("qwen2.5-3b")
     gen = generator_for(torch.device("cpu"), 0)
-    for bad in (cfg.replace(block_pattern=("moe",), num_experts=4, top_k=2),
-                cfg.replace(block_pattern=("global", "moe_dense")),
-                cfg.replace(qk_norm=True),
-                cfg.replace(is_encoder_decoder=True),
+    for bad in (cfg.replace(is_encoder_decoder=True),
                 cfg.replace(num_patch_tokens=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MDL.init_params(gen, bad, device="cpu")
-    # the kinds and features this slice brought now build
+    # the kinds and features the slices brought now build
     for good in (cfg.replace(block_pattern=("local", "global")),
-                 cfg.replace(tie_embeddings=False)):
+                 cfg.replace(tie_embeddings=False),
+                 cfg.replace(qk_norm=True),
+                 cfg.replace(block_pattern=("moe",), num_experts=4, top_k=2,
+                             moe_d_ff=32),
+                 cfg.replace(block_pattern=("global", "moe_dense"),
+                             num_experts=4, top_k=2, moe_d_ff=32,
+                             dense_residual_d_ff=64)):
         MDL.init_params(gen, good, device="cpu")

@@ -6,8 +6,10 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1/K2 f32 2e-5, bf16 2e-2 and K3 1e-5, K4 5e-4 (those of
-tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3. K5
-(the planner's masked argmax) and the torch planner backend are exact.
+tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3; K6
+(the int8 matmul) 10x those, as tests/test_kernels.py:117. K5 (the
+planner's masked argmax) and the torch planner backend are exact. The
+last test runs the live testbed's smoke spec on the card.
 """
 
 import numpy as np
@@ -39,12 +41,17 @@ FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
     (2, 96, 96, 8, 8, 32, False, 0),
     (1, 33, 33, 2, 2, 128, True, 8),
     (1, 300, 300, 10, 1, 256, True, 256),   # recurrentgemma heads, window
+    (2, 33, 33, 8, 2, 16, True, 0),         # the testbed's smoke rungs
+    (1, 40, 40, 6, 2, 16, True, 0),
+    (2, 17, 17, 1, 1, 16, True, 8),
 ]
 DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (3, 8, 2, 64, 200, 0),
     (2, 4, 1, 32, 64, 16),
     (1, 16, 16, 128, 300, 0),
     (4, 10, 1, 256, 512, 0),                # recurrentgemma heads
+    (2, 8, 2, 16, 96, 0),                   # the testbed's smoke rungs
+    (2, 2, 1, 16, 96, 8),
 ]
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256),     # :64-68
               (1, 256, 2560), (4, 1, 2560)]
@@ -252,3 +259,49 @@ def test_torch_planner_on_card_matches_numpy(cuda, dtype):
         assert list(r_np.assignment) == list(r_t.assignment)
         assert r_np.unplaced == r_t.unplaced
         assert r_np.objective == r_t.objective
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_matches_plain_on_cuda(cuda, dtype):
+    """K6 against its plain version: the sweep of tests/test_kernels.py
+    (ragged M, N, K; an int8 row of 130 bytes), a view of x with a row
+    stride, a w_q whose N is not a multiple of 4, and the decode and
+    prefill M at a qwen3-32b MLP shape."""
+    from repro_torch.kernels.int8_matmul import ops as k6
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    k6.LAUNCHES = 0
+    n = 0
+    for M, K, N in ((100, 300, 200), (64, 128, 64), (33, 65, 130),
+                    (4, 5120, 1030), (256, 512, 2048)):
+        x = torch.randn(M, K + 3, generator=g, device=cuda).to(dt)[:, 3:]
+        w = torch.randn(K, N, generator=g, device=cuda) * 0.05
+        wq, sc = k6.quantize_int8(w)
+        for out_dtype in (None, torch.float32):
+            out = k6.int8_matmul(x, wq, sc, out_dtype=out_dtype)
+            ref = k6.int8_matmul_torch(x, wq, sc, out_dtype=out_dtype)
+            assert out.dtype == ref.dtype
+            assert _max_err(out, ref) < 10 * ATOL[dtype], (M, K, N)
+            n += 1
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES == n
+
+
+@pytest.mark.cuda
+def test_testbed_smoke_spec_on_the_card(cuda):
+    """The live testbed's smoke spec on the card, through the experiment
+    entry point: every engine and the planner on the card, the failover
+    recovered, no error other than a dead server, and the attention
+    kernels launched by the workers."""
+    from repro_torch.experiment import ExperimentSpec, run_experiment
+    from repro_torch.kernels.planner_argmax import ops as k5
+    for m in (fa_ops, dec_ops, wkv_ops, k5):
+        m.LAUNCHES = 0
+    res = run_experiment(ExperimentSpec.smoke("testbed"))
+    assert res.overall["recovery_rate"] == 1.0
+    assert res.extras["load_errors"] == []
+    assert 0.0 < res.detect_latency_s < 1.0
+    assert res.traffic.n_offered > 0
+    assert fa_ops.LAUNCHES and dec_ops.LAUNCHES and wkv_ops.LAUNCHES
+    assert k5.LAUNCHES

@@ -1,11 +1,13 @@
-"""The port's models (qwen2.5-3b, recurrentgemma-2b, rwkv6-3b) against
-the JAX model on bridged params.
+"""The port's models (qwen2.5-3b, recurrentgemma-2b, rwkv6-3b, qwen3-32b
+with qk_norm, qwen3-moe-30b-a3b with its MoE FFN) against the JAX model on
+bridged params.
 
 JAX's SMOKE params (``repro.models.model.init_params``) go through the
-bridge; ``forward``, ``prefill`` and ``decode_step`` logits must agree
-at atol 2e-4 (the tolerance of test_archs.py's prefill/decode check),
-and the caches they leave (KV buffers and recurrent states) must agree
-too. The port's own model must also pass
+bridge; ``forward`` (logits and the MoE aux loss), ``prefill`` and
+``decode_step`` logits must agree at atol 2e-4 (the tolerance of
+test_archs.py's prefill/decode check), greedy decoding must give the same
+tokens, and the caches they leave (KV buffers and recurrent states) must
+agree too. The port's own model must also pass
 test_archs.py::test_smoke_prefill_decode_matches_forward, and the bridge
 must round-trip exactly, keeping the fp32 leaves of a bf16 model fp32.
 """
@@ -25,7 +27,11 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.device import generator_for  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
-ARCHS = ["qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b"]
+ARCHS = ["qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-32b",
+         "qwen3-moe-30b-a3b"]
+# archs whose bf16 models keep fp32 leaves (recurrent params and states,
+# the MoE router)
+MIXED_DTYPE_ARCHS = ["recurrentgemma-2b", "rwkv6-3b", "qwen3-moe-30b-a3b"]
 ATOL = 2e-4
 S, B = 24, 2
 
@@ -66,9 +72,31 @@ def test_param_tree_layout_matches_jax(bridged):
 
 def test_forward_matches_jax(bridged):
     cj, ct, pj, pt, toks = bridged
-    lj, _ = JM.forward(pj, cj, jnp.asarray(toks))
-    lt, _ = TM.forward(pt, ct, torch.from_numpy(toks))
+    lj, aux_j = JM.forward(pj, cj, jnp.asarray(toks))
+    lt, aux_t = TM.forward(pt, ct, torch.from_numpy(toks))
     assert _max_err(lj, lt) < ATOL
+    assert abs(float(aux_j) - float(aux_t)) < 2e-5
+    assert (float(aux_t) > 0) == ("moe" in ct.block_pattern)
+
+
+def test_greedy_tokens_match_jax(bridged):
+    """Prefill, then greedy decoding fed by each side's own argmax: the
+    same tokens at every step."""
+    cj, ct, pj, pt, toks = bridged
+    P, N = 12, 8
+    cache_j = JM.init_cache(cj, B, P + N + 1)
+    cache_t = TM.init_cache(ct, B, P + N + 1, device="cpu")
+    lj, cache_j = JM.prefill(pj, cj, jnp.asarray(toks[:, :P]), cache_j)
+    lt, cache_t = TM.prefill(pt, ct, torch.from_numpy(toks[:, :P]), cache_t)
+    got_j, got_t = [], []
+    for _ in range(N):
+        tj = np.asarray(jnp.argmax(lj, axis=-1)).astype(np.int32)
+        tt = torch.argmax(lt, dim=-1).to(torch.int32)
+        got_j.append(tj.tolist())
+        got_t.append(tt.tolist())
+        lj, cache_j = JM.decode_step(pj, cj, jnp.asarray(tj), cache_j)
+        lt, cache_t = TM.decode_step(pt, ct, tt, cache_t)
+    assert got_t == got_j
 
 
 def test_prefill_decode_match_jax(bridged):
@@ -183,12 +211,12 @@ def test_ring_buffer_wraps_like_jax():
         < ATOL
 
 
-@pytest.mark.parametrize("arch", ARCHS[1:])
+@pytest.mark.parametrize("arch", MIXED_DTYPE_ARCHS)
 def test_bridge_keeps_fp32_leaves_of_a_bf16_model(arch):
     """A bf16 model's param and cache trees cross the bridge with each
-    leaf's dtype kept (log_lambda, the rwkv mix/decay/bonus params, ln_x
-    and the recurrent states stay fp32) and come back exactly; the port
-    allocates the same dtypes itself."""
+    leaf's dtype kept (log_lambda, the rwkv mix/decay/bonus params, ln_x,
+    the recurrent states and the MoE router stay fp32) and come back
+    exactly; the port allocates the same dtypes itself."""
     cj = jconfigs.get_smoke(arch).replace(param_dtype="bfloat16",
                                           activation_dtype="bfloat16")
     ct = tconfigs.get_smoke(arch).replace(param_dtype="bfloat16",
@@ -197,14 +225,15 @@ def test_bridge_keeps_fp32_leaves_of_a_bf16_model(arch):
     pairs = ((JM.init_params(jax.random.PRNGKey(0), cj),
               TM.init_params(generator_for(cpu, 0), ct, device=cpu)),
              (JM.init_cache(cj, 2, 16), TM.init_cache(ct, 2, 16, device=cpu)))
-    for tree_j, own in pairs:
+    for i, (tree_j, own) in enumerate(pairs):
         src = _np_tree(tree_j)
         pt = bridge.params_from_jax(src, cpu)
         want = jax.tree_util.tree_map(lambda a: str(a.dtype), src)
         for t in (pt, own):
             got = bridge._map(lambda x: str(x.dtype).replace("torch.", ""), t)
             assert got == want
-        assert "float32" in jax.tree_util.tree_leaves(want)
+        if i == 0 or "moe" not in ct.block_pattern:   # an MoE cache is KV
+            assert "float32" in jax.tree_util.tree_leaves(want)
         for a, b in zip(jax.tree_util.tree_leaves(src),
                         jax.tree_util.tree_leaves(bridge.params_to_numpy(pt))):
             np.testing.assert_array_equal(a.astype(np.float32), b)
