@@ -88,6 +88,8 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -119,11 +121,17 @@ FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
     (1, 100, 100, 4, 1, 64, True, 16),
     (2, 96, 96, 8, 8, 32, False, 0),
     (1, 33, 33, 2, 2, 128, True, 8),
+    (2, 77, 77, 16, 2, 128, True, 0),       # ragged, tests/test_torch_cuda
+    (1, 150, 150, 4, 1, 256, True, 0),
 ]
 DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (3, 8, 2, 64, 200, 0),
     (2, 4, 1, 32, 64, 16),
     (1, 16, 16, 128, 300, 0),
+    (2, 4, 4, 128, 300, 0),                 # G = 1, 5, 8, 32 as
+    (4, 5, 1, 256, 512, 100),               # tests/test_torch_cuda.py
+    (4, 16, 2, 128, 512, 0),
+    (2, 32, 1, 64, 700, 0),
 ]
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256)]    # :64-68
 WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8)]  # :82-86
@@ -134,6 +142,8 @@ RUNGS = {"qwen2.5-3b": ("full", "w075", "w050"),
          "rwkv6-3b": ("full", "w050"),
          "qwen3-32b": ("full", "w050")}
 PREFILL_LENS = (128, 256, 512)
+RAGGED_LEN = 333            # K1 rows whose prompt ends inside a query tile
+RAGGED_TAGS = ("qwen2.5-3b full", "recurrentgemma-2b full")
 BINDING_LEN = 2100          # a prompt past recurrentgemma-2b's window 2048
 SLOTS, MAX_LEN, NEW_TOKENS = 4, 512, 32
 DECODE_LENS = [97, 161, 288, 512]
@@ -189,6 +199,11 @@ INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
 # archs of the testbed's default list)
 TESTBED_SMOKE_TIMED = ("qwen2.5-3b", "qwen3-32b", "recurrentgemma-2b",
                        "qwen3-moe-30b-a3b")
+# the serving kernels' device names, as torch.profiler reports them: K1's
+# tensor-core (bf16) and scalar (f32) kernels, K2's split and combine
+# passes, K3, K4
+PORT_KERNEL_NAMES = ("fa_tc_kernel", "fa_kernel", "dec_split_kernel",
+                     "dec_combine_kernel", "rglru_kernel", "wkv_kernel")
 NO_LIBRARY = {
     "rglru_scan": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
@@ -275,6 +290,13 @@ def graph_ms(fn, reps=20, n=20, warmup=3):
         out.append(s.elapsed_time(e) / reps)
     del graph
     return statistics.median(out)
+
+
+def peak_for(dtype):
+    """The operation rate a kernel's dtype runs at: K1/K2's bf16 paths on
+    the tensor cores (K2 is bound by bytes either way), their f32 paths
+    in scalar fp32 FMAs."""
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
 
 
 def bound(nbytes, flops, peak):
@@ -531,7 +553,7 @@ def phase_kernels():
             functools.partial(fa_ops.flash_attention, q, k, v, causal=True,
                               window=window),
             lambda: flash_plain(q, k, v, True, window), lib,
-            nbytes(q, k, v, q), 4 * hd * H * pairs * B, PEAK_BF16_FLOPS)
+            nbytes(q, k, v, q), 4 * hd * H * pairs * B, peak_for(dt))
 
     def decode_row(tag, H, KVH, hd, dt=bf16, B=SLOTS, Smax=MAX_LEN,
                    lens_list=DECODE_LENS):
@@ -555,7 +577,11 @@ def phase_kernels():
             functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
                               attn_mask=mask, enable_gqa=True),
             q.element_size() * (2 * q.numel() + 2 * n_keys * KVH * hd)
-            + 4 * B, 4 * hd * H * n_keys, PEAK_BF16_FLOPS)
+            + 4 * B, 4 * hd * H * n_keys, peak_for(dt))
+        n_split, chunk = dec_ops.plan_split(B, KVH, Smax, dec_ops.sm_count(
+            torch.cuda.current_device()))
+        rows["decode_attention"][tag].update(
+            n_split=n_split, chunk=chunk, blocks=n_split * KVH * B)
 
     def scan_row(tag, B, S, W):
         a, b, h0 = scan_inputs(B, S, W)
@@ -596,8 +622,21 @@ def phase_kernels():
     for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
         for S in PREFILL_LENS + ((BINDING_LEN,) if window else ()):
             flash_row(f"{tag} S={S}", H, KVH, hd, S, window)
+    # a prompt that is no multiple of K1's 64-row query tile, at head_dim
+    # 128 and 256
+    for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
+        if tag in RAGGED_TAGS:
+            flash_row(f"{tag} S={RAGGED_LEN} ragged", H, KVH, hd, RAGGED_LEN,
+                      window)
     for tag, (H, KVH, hd, _w) in shapes["decode_attention"]:
         decode_row(f"{tag} decode", H, KVH, hd)
+    r = rows["decode_attention"]["qwen2.5-3b full decode"]
+    log(f"  K2 split-KV at qwen2.5-3b :full decode (B={SLOTS}, Smax="
+        f"{MAX_LEN}, KVH 2): n_split {r['n_split']} chunks of {r['chunk']} "
+        f"keys, {r['blocks']} blocks, then the combine kernel")
+    if r["blocks"] < 64:
+        raise AssertionError(f"K2 launches {r['blocks']} blocks at "
+                             "qwen2.5-3b's decode shape, want >= 64")
     # the testbed's smoke :full rungs, f32 as they are served
     seen = set()
     for arch in TESTBED_SMOKE_TIMED:
@@ -624,11 +663,13 @@ def phase_kernels():
         for tag, r in by_tag.items():
             lib = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.5f}")
+            split = (f"; n_split {r['n_split']} x {r['chunk']} keys, "
+                     f"{r['blocks']} blocks" if "n_split" in r else "")
             log(f"  {kname} {tag} [{r['shape']}]: device ms kernel "
                 f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library {lib}, "
                 f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
                 f"{r['peak']} peak); eager call {r['eager_ms']:.5f} ms; "
-                f"max_abs_err {r['max_abs_err']:.3g}")
+                f"max_abs_err {r['max_abs_err']:.3g}{split}")
     torch.cuda.synchronize()
     return rows
 
@@ -930,8 +971,7 @@ def device_profile(MDL, eng, prompt_len=256, n=5):
             kern.sort(key=lambda kv: -kv[1])
             total = sum(t for _, t in kern)
             ours = sum(t for k, t in kern if any(
-                tag in k for tag in ("fa_kernel", "dec_kernel",
-                                     "rglru_kernel", "wkv_kernel")))
+                tag in k for tag in PORT_KERNEL_NAMES))
             out[name] = {"device_ms": total, "port_kernels_ms": ours,
                          "n_kernel_names": len(kern),
                          "top": [(k[:60], t) for k, t in kern[:6]]}
@@ -1555,6 +1595,58 @@ def phase_testbed_full():
     return res, launches
 
 
+def sass_counts(name, opcode):
+    """Per kernel function of the built ``name`` library, the number of
+    SASS instructions of ``opcode`` (``cuobjdump -sass``)."""
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build.target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(rf"\b{opcode}\b", ln):
+            counts[fn] += 1
+    return counts
+
+
+def phase_build():
+    """Build every kernel (one nvcc each, all at once), print each
+    kernel's ptxas registers and spills, fail on any spill in K1/K2, and
+    print the HMMA count of each of K1's bf16 (tensor-core)
+    instantiations, failing if one has none."""
+    from repro_torch.kernels import _build
+
+    t0 = time.monotonic()
+    secs = _build.build(list(KERNELS))
+    log(f"  built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
+        f"(per kernel {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
+    for name in KERNELS:
+        lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
+        regs = [ln.split(":", 1)[1].strip() for ln in lines
+                if "registers" in ln]
+        spills = sorted({ln.strip() for ln in lines if "spill" in ln})
+        log(f"  ptxas {name}: {'; '.join(regs)} | {'; '.join(spills)}")
+        if name in ("flash_attention", "decode_attention"):
+            spilled = [ln for ln in lines if re.search(
+                r"[1-9]\d* bytes spill (stores|loads)", ln)]
+            if spilled:
+                raise AssertionError(f"ptxas spills in {name}: {spilled}")
+    hmma = {f"hd {m.group(1)}": n
+            for fn, n in sass_counts("flash_attention", "HMMA").items()
+            for m in [re.search(r"fa_tc_kernelILi(\d+)E", fn)] if m}
+    log(f"  HMMA instructions in K1's bf16 instantiations: "
+        f"{json.dumps(hmma)}")
+    if len(hmma) != 5 or not all(hmma.values()):
+        raise AssertionError(f"K1's bf16 kernels lack tensor-core mma: "
+                             f"{hmma}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1578,16 +1670,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     log("phase 1: build")
-    t0 = time.monotonic()
-    secs = _build.build(list(KERNELS))
-    log(f"  built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
-        f"(per kernel {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
-    for name in KERNELS:
-        lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
-        regs = [ln.split(":", 1)[1].strip() for ln in lines
-                if "registers" in ln]
-        spills = sorted({ln.strip() for ln in lines if "spill" in ln})
-        log(f"  ptxas {name}: {'; '.join(regs)} | {'; '.join(spills)}")
+    phase_build()
 
     log("phase 2: kernels against their plain versions")
     t0 = time.monotonic()

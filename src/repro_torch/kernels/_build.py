@@ -49,7 +49,8 @@ def _nvcc() -> str:
                        "from source with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
+def target(name: str) -> Path:
+    """The built library of ``name`` (named by its source's hash)."""
     digest = hashlib.sha256(source(name).read_bytes()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -61,7 +62,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List[tuple] = []
     for name in names:
-        out = _target(name)
+        out = target(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -92,7 +93,7 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            lib = ctypes.CDLL(str(target(name)))
             _libs[name] = lib
         return lib
 

@@ -4,11 +4,19 @@ Takes the model's layout: q (B, 1, H, hd) against the slot cache
 (B, Smax, KVH, hd), read in place. A CUDA tensor launches the kernel on
 the current stream (no synchronize); a CPU tensor runs the plain version
 in ``ref.py``. There is no fallback from one to the other.
+
+On the card a call is split-KV: ``plan_split`` cuts the cache into
+fixed chunks from the shapes and the card's SM count alone (never from
+``lens``, so a decode step needs no host sync), one kernel writes each
+chunk's partial softmax into fp32 workspaces allocated here, and a second
+merges them in fixed order. ``LAUNCHES`` counts wrapper calls, one per
+layer per decode step, whatever the number of kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -19,6 +27,7 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 NAME = "decode_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32                     # one warp per query head of a group
+TILE_KEYS = 32                     # keys per tile of the split kernel
 DTYPES = _build.DTYPE_CODES
 
 # kernel launches since the last reset; read and reset by chip_smoke.py
@@ -34,8 +43,27 @@ def _lib():
     fn = lib.faillite_decode_attention
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = ([_P] * 5 + [_I] * 6 + [_L] * 10 + [_I, _P])
+        fn.argtypes = ([_P] * 8 + [_I] * 8 + [_L] * 10 + [_I, _P])
     return fn
+
+
+def plan_split(B, KVH, Smax, n_sm):
+    """(n_split, chunk) of the split-KV launch: chunk s covers the key
+    positions [s * chunk, (s + 1) * chunk), chunk a multiple of
+    ``TILE_KEYS``, every chunk non-empty. Aims at one to two waves of
+    blocks, (n_split, KVH, B) >= min(n_sm, B * KVH * tiles) and below
+    2 * n_sm + B * KVH; depends on these four numbers only."""
+    tiles = -(-Smax // TILE_KEYS)
+    want = -(-2 * n_sm // (B * KVH))
+    per = -(-tiles // min(tiles, want))   # tiles a chunk
+    chunk = per * TILE_KEYS
+    return -(-Smax // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """The card's number of SMs, read once per device."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lens, window):
@@ -85,11 +113,20 @@ def decode_attention(q, k_cache, v_cache, lens, *, window=0):
         raise ValueError("q and caches need a unit stride on head_dim and "
                          "16-byte aligned rows")
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    n_split, chunk = plan_split(B, KVH, Smax, sm_count(q.device.index))
+    G = H // KVH
+    parts = [None] * 3
+    if n_split > 1:
+        acc = torch.empty((B, KVH, n_split, G, hd), dtype=torch.float32,
+                          device=q.device)
+        ml = torch.empty((2, B, KVH, n_split, G), dtype=torch.float32,
+                         device=q.device)
+        parts = [acc.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr()]
     fn = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lens.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
-             B, H, KVH, Smax, hd,
+             lens.data_ptr(), out.data_ptr(), *parts, DTYPES[q.dtype],
+             B, H, KVH, Smax, hd, n_split, chunk,
              q.stride(0), q.stride(2),
              *k_cache.stride()[:3], *v_cache.stride()[:3],
              out.stride(0), out.stride(2), int(window), stream)

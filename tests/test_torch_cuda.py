@@ -44,6 +44,8 @@ FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
     (2, 33, 33, 8, 2, 16, True, 0),         # the testbed's smoke rungs
     (1, 40, 40, 6, 2, 16, True, 0),
     (2, 17, 17, 1, 1, 16, True, 8),
+    (2, 77, 77, 16, 2, 128, True, 0),       # ragged Sq (not a multiple
+    (1, 150, 150, 4, 1, 256, True, 0),      # of the 64-row query tile)
 ]
 DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (3, 8, 2, 64, 200, 0),
@@ -52,7 +54,14 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (4, 10, 1, 256, 512, 0),                # recurrentgemma heads
     (2, 8, 2, 16, 96, 0),                   # the testbed's smoke rungs
     (2, 2, 1, 16, 96, 8),
+    (2, 4, 4, 128, 300, 0),                 # G = 1
+    (4, 5, 1, 256, 512, 100),               # G = 5, window inside chunks
+    (4, 16, 2, 128, 512, 0),                # G = 8
+    (2, 32, 1, 64, 700, 0),                 # G = 32
 ]
+# K2 at the main path's decode shape: 4 slots x 512 positions; plus lens at
+# the 32-key tile and chunk edges (1, 32, 33) and the whole cache
+DECODE_LENS = ([97, 161, 288, 512], [1, 32, 33, 512])
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256),     # :64-68
               (1, 256, 2560), (4, 1, 2560)]
 WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8),  # :82-86
@@ -98,6 +107,84 @@ def test_kernels_match_plain_on_cuda(cuda, dtype):
                                    vc.transpose(1, 2), lens, window=window)
         assert _max_err(out[:, 0], ref) < ATOL[dtype]
     torch.cuda.synchronize()
+
+
+def _full_width_attention_shapes():
+    """(H, KVH, hd, window) of every rung phases 4 and 6 serve at full
+    width: the ladders of qwen2.5-3b, recurrentgemma-2b and qwen3-32b."""
+    from repro_torch.core.variants import build_ladder
+    from repro_torch.models.model import ATTN_KINDS
+    out = set()
+    for arch in ("qwen2.5-3b", "recurrentgemma-2b", "qwen3-32b"):
+        for v in build_ladder(configs.get_config(arch)):
+            c = v.config
+            kinds = set(c.layer_kinds())
+            if kinds & set(ATTN_KINDS):
+                out.add((c.num_heads, c.num_kv_heads, c.head_dim,
+                         c.window_size if "local" in kinds else 0))
+    return sorted(out)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_full_width_rungs(cuda):
+    """K1 and K2 in bf16 at every full-width rung shape: K1 on a 256-token
+    prompt (and 2100 where the window binds), K2 over 4 slots x 512
+    positions, also held against the split-KV emulation of the plan the
+    wrapper launches."""
+    from repro_torch.kernels.decode_attention.ref import \
+        decode_attention_split_ref
+    dt = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    n_sm = dec_ops.sm_count(torch.cuda.current_device())
+    for H, KVH, hd, window in _full_width_attention_shapes():
+        for S in (256,) + ((2100,) if window else ()):
+            q = torch.randn(1, S, H, hd, generator=g, device=cuda).to(dt)
+            k = torch.randn(1, S, KVH, hd, generator=g, device=cuda).to(dt)
+            v = torch.randn(1, S, KVH, hd, generator=g, device=cuda).to(dt)
+            out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+            ref = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), causal=True,
+                                      window=window).transpose(1, 2)
+            assert _max_err(out, ref) < ATOL["bfloat16"], (H, KVH, hd, S)
+        q = torch.randn(4, 1, H, hd, generator=g, device=cuda).to(dt)
+        kc = torch.randn(4, 512, KVH, hd, generator=g, device=cuda).to(dt)
+        vc = torch.randn(4, 512, KVH, hd, generator=g, device=cuda).to(dt)
+        _, chunk = dec_ops.plan_split(4, KVH, 512, n_sm)
+        for lens in DECODE_LENS:
+            lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+            out = dec_ops.decode_attention(q, kc, vc, lens, window=window)
+            args = (q[:, 0], kc.transpose(1, 2), vc.transpose(1, 2), lens)
+            ref = decode_attention_ref(*args, window=window)
+            split, _ = decode_attention_split_ref(*args, window=window,
+                                                  chunk=chunk)
+            assert _max_err(out[:, 0], ref) < ATOL["bfloat16"], (H, KVH)
+            assert _max_err(out[:, 0], split) < ATOL["bfloat16"], (H, KVH)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_kernels_deterministic(cuda, dtype):
+    """Two calls of K1 and of K2 (split-KV, several chunks) on the same
+    inputs are bit-equal."""
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(1, 300, 16, 128, generator=g, device=cuda).to(dt)
+    k = torch.randn(1, 300, 2, 128, generator=g, device=cuda).to(dt)
+    v = torch.randn(1, 300, 2, 128, generator=g, device=cuda).to(dt)
+    a = fa_ops.flash_attention(q, k, v, causal=True, window=0)
+    b = fa_ops.flash_attention(q, k, v, causal=True, window=0)
+    assert torch.equal(a, b)
+    q = torch.randn(4, 1, 16, 128, generator=g, device=cuda).to(dt)
+    kc = torch.randn(4, 512, 2, 128, generator=g, device=cuda).to(dt)
+    vc = torch.randn(4, 512, 2, 128, generator=g, device=cuda).to(dt)
+    lens = torch.tensor([97, 161, 288, 512], dtype=torch.int32, device=cuda)
+    assert dec_ops.plan_split(4, 2, 512, dec_ops.sm_count(
+        torch.cuda.current_device()))[0] > 1
+    a = dec_ops.decode_attention(q, kc, vc, lens)
+    b = dec_ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
