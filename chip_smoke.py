@@ -17,10 +17,15 @@ and prints no result):
    phases 4 and 6 serve (heads, KV heads, head_dim and window of each
    attention rung, one prompt where recurrentgemma-2b's window binds; the
    LRU width and the WKV heads of each recurrent rung; from a nonzero
-   state), the testbed's smoke rungs (head_dim 16) in f32. The main-path
-   shapes are timed in bf16 (the smoke rungs in f32) beside the plain
-   version, the bound, and, for K1/K2, PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   state), the testbed's smoke rungs (head_dim 16) in f32. K4 has two
+   routes, the chunked tensor-core kernels of a prefill (S > 1) and the
+   recurrence of a decode step, each checked on the sweep, every rung,
+   prompts that are no multiple of the 32-step chunk or shorter than it,
+   lw spread to -3 and down to -20 (below the TPU kernel's clamp), the
+   final state written over s0. The main-path shapes are timed in bf16
+   (the smoke rungs in f32) beside the plain version, the bound, and, for
+   K1/K2, PyTorch's ``scaled_dot_product_attention`` (a yardstick the
+   port never calls); K4's prefill rows also with a cold L2.
    K6 (the weight-only int8 matmul, which no model calls, as in the JAX
    package) on the sweep of tests/test_kernels.py:102-104 in f32 and bf16
    and at qwen3-32b's MLP shapes in bf16, within 10x the K1 tolerances,
@@ -46,31 +51,41 @@ and prints no result):
    show one launch per layer of each kind per prefill and per decode step.
    Each arch is unloaded before the next one loads;
 5. the simulator's failover planning (the greedy planner's ``torch``
-   backend, whose worst-fit reduction is K5, the masked argmax): K5
-   exactly equal to its plain version (index and value) for S in
+   backend, which plans each round in one launch of K5's round kernel,
+   the masked argmax inline): the standalone masked argmax (the TPU
+   kernel's contract) exactly equal to its plain version (index and
+   value) for S in
    ``ARGMAX_SIZES`` x float32/float64 x empty/sparse/dense/all-tied masks,
    one row and (8, S) rows over one shared column, the dense ones timed
    beside the plain version, the bound and ``torch.where`` +
-   ``torch.argmax`` (a yardstick, printed only); ``plan_greedy_torch`` on
-   the card equal to the port's numpy planner (assignments, their order,
-   the unplaced list, the objective bits) on 20 random instances per
-   state dtype; and tools/bench_scale.py's 1000-server x 10,000-app cell
+   ``torch.argmax`` (a yardstick, printed only); on 20 random instances
+   per state dtype, the round kernel bit-equal to its plain version
+   (``place_chunk`` + ``upgrade_chunk``, on the CPU): placements,
+   upgrades and the free/head/budget tensors after the round, and
+   ``plan_greedy_torch`` on the card equal to the port's numpy planner
+   (assignments, their order, the unplaced list, the objective bits); and
+   tools/bench_scale.py's 1000-server x 10,000-app cell
    through ``Simulation(SimConfig(planner="greedy",
    planner_backend=...)).setup().run_named_scenario("site-outage")`` on
    the torch backend and on numpy in this process from one seed, their
    recovery records, placements and traffic summaries equal. It prints
-   each backend's plan wall, peak failover plan phase, rounds and K5
-   launches per round, all from these two unprofiled runs, and the
-   device idle share of one failover round from a third, profiled torch
-   run that replays the round before planning it. K5's counter is
-   zeroed just before the first torch run and read after it;
+   each backend's plan wall, peak failover plan phase, rounds and round
+   kernel launches per round (one, and no standalone argmax), all from
+   these two unprofiled runs, and the device idle share and device
+   kernels of one failover round from a third, profiled torch run that
+   replays the round before planning it; that round is then timed on the
+   round kernel and on its plain version on the card (which launches the
+   standalone argmax once per app: its counted path), the two bit-equal.
+   The counters are zeroed just before the first torch run and read
+   after it;
 6. the live failover testbed through the port's entry points, on the
    card: (a) ``run_experiment(ExperimentSpec(backend="testbed", ...))``
    on tests/test_experiment.py:185's spec with the default arch list
    (all five testbed archs on their smoke ladders, 3 sites x 2 servers),
    then the same spec on the ``sim`` backend: equal failover choices
    (``recovery_by_app()``), recovery rate 1, detection under 1 s, a
-   finite client MTTR, no error other than a dead server, and K1-K5 each
+   finite client MTTR, no error other than a dead server, and every
+   kernel of the path (K1-K3, both K4 routes, the K5 round kernel)
    launched during the testbed run (counters zeroed just before it, read
    just after); (b) a ``MiniTestbed`` of two critical apps at full width
    (qwen2.5-3b's published config, qwen3-32b's published widths at 8
@@ -87,6 +102,7 @@ from __future__ import annotations
 
 import functools
 import gc
+import itertools
 import json
 import re
 import shutil
@@ -167,48 +183,83 @@ SMOKE_SLOTS, SMOKE_MAX_LEN, SMOKE_PROMPT = 2, 96, 8
 INT8_SWEEP = [(100, 300, 200), (64, 128, 64), (33, 65, 130)]  # :102-104
 INT8_MLP = {"gate/up": (5120, 25600), "down": (25600, 5120)}
 INT8_M = (SLOTS, 256)
-# name -> (source, TPU kernel it replaces, headline row of the JSON line)
+# route -> (kernel package, source, TPU kernel it replaces, headline row
+# of the JSON line); K4 and K5 have two routes each in one source
 KERNELS = {
     "flash_attention": (
+        "flash_attention",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:29",
         "qwen2.5-3b full S=256"),
     "decode_attention": (
+        "decode_attention",
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:27",
         "qwen2.5-3b full decode"),
     "rglru_scan": (
+        "rglru_scan",
         "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan/rglru_scan.py:25",
         "recurrentgemma-2b full S=256"),
-    "rwkv6_scan": (
+    "rwkv6_chunked": (
+        "rwkv6_scan",
         "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
         "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
         "rwkv6-3b full S=256"),
+    "rwkv6_scan": (
+        "rwkv6_scan",
+        "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
+        "rwkv6-3b full decode"),
+    "planner_round": (
+        "planner_argmax",
+        "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
+        "src/repro/kernels/planner_argmax/planner_argmax.py:29",
+        "site-outage failover round"),
     "planner_argmax": (
+        "planner_argmax",
         "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
         "src/repro/kernels/planner_argmax/planner_argmax.py:29",
         "(8,1000) float64 dense"),
     "int8_matmul": (
+        "int8_matmul",
         "src/repro_torch/kernels/int8_matmul/csrc/int8_matmul.cu",
         "src/repro/kernels/int8_matmul/int8_matmul.py:24",
         "qwen3-32b gate/up M=4"),
 }
+# the serving routes, whose launches phase 4 checks per layer
+SERVING = ("flash_attention", "decode_attention", "rglru_scan",
+           "rwkv6_chunked", "rwkv6_scan")
+# routes off the main path, each counted on a standalone path of its own
+STANDALONE = ("planner_argmax", "int8_matmul")
 INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
+ARGMAX_PATH = ("standalone (off the main path since the round kernel): the "
+               "failover round's place_chunk + upgrade_chunk on the card")
 # the smoke :full rungs whose K1/K2 shapes phase 2 times (the attention
 # archs of the testbed's default list)
 TESTBED_SMOKE_TIMED = ("qwen2.5-3b", "qwen3-32b", "recurrentgemma-2b",
                        "qwen3-moe-30b-a3b")
 # the serving kernels' device names, as torch.profiler reports them: K1's
 # tensor-core (bf16) and scalar (f32) kernels, K2's split and combine
-# passes, K3, K4
+# passes, K3, K4's recurrence and its three chunked kernels
 PORT_KERNEL_NAMES = ("fa_tc_kernel", "fa_kernel", "dec_split_kernel",
-                     "dec_combine_kernel", "rglru_kernel", "wkv_kernel")
+                     "dec_combine_kernel", "rglru_kernel", "wkv_kernel",
+                     "wkv_chunk_state_kernel", "wkv_chunk_scan_kernel",
+                     "wkv_chunk_out_kernel")
+# K5's device names: the standalone argmax and the round kernel
+K5_KERNEL_NAMES = ("masked_argmax_kernel", "plan_round_kernel")
 NO_LIBRARY = {
     "rglru_scan": "none: no single PyTorch call computes this recurrence",
+    "rwkv6_chunked": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
+    "planner_round": "none: no single PyTorch call plans a round",
     "planner_argmax": "none (no single PyTorch call)",
 }
+# K4's extra rows: prompts that are no multiple of the 32-step chunk and
+# prompts shorter than it, (B, NH, S, hs)
+WKV_EDGES = [(1, 2, 31, 64), (2, 3, 33, 16), (1, 2, 2, 32), (2, 1, 95, 8),
+             (1, 4, 250, 64)]
+WKV_LW_MIN = (-3.0, -20.0)        # lw spread down to these
 # phase 5: K5 at the planner's column lengths (servers) and past them, one
 # row and the (V, S) rows the planner asks for at once
 ARGMAX_SIZES = (6, 1000, 10000, 100000)
@@ -228,10 +279,34 @@ def log(*a):
 
 
 def all_ops():
-    """Every kernel's wrapper module, by kernel name."""
+    """Every kernel package's wrapper module, by package name."""
     from repro_torch.kernels.int8_matmul import ops as k6
     from repro_torch.kernels.planner_argmax import ops as k5
     return {**ops_modules(), "planner_argmax": k5, "int8_matmul": k6}
+
+
+def reset_counts():
+    """Zero every wrapper's launch counters."""
+    for m in all_ops().values():
+        for name in ("LAUNCHES", "CHUNKED_LAUNCHES", "ROUND_LAUNCHES"):
+            if hasattr(m, name):
+                setattr(m, name, 0)
+
+
+def read_counts(routes=None):
+    """Launches since the last reset, by route (``KERNELS``): K4's chunked
+    prefill and recurrent decode calls, K5's round kernel and standalone
+    argmax apart."""
+    m = all_ops()
+    wkv, k5 = m["rwkv6_scan"], m["planner_argmax"]
+    out = {name: m[name].LAUNCHES for name in
+           ("flash_attention", "decode_attention", "rglru_scan",
+            "int8_matmul")}
+    out.update(rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
+               rwkv6_scan=wkv.LAUNCHES - wkv.CHUNKED_LAUNCHES,
+               planner_round=k5.ROUND_LAUNCHES,
+               planner_argmax=k5.LAUNCHES - k5.ROUND_LAUNCHES)
+    return {k: out[k] for k in (routes or KERNELS)}
 
 
 def ops_modules():
@@ -306,6 +381,16 @@ def bound(nbytes, flops, peak):
     t_ops = flops / peak
     return (max(t_mem, t_ops) * 1e3, "bytes" if t_mem >= t_ops else
             "operations")
+
+
+def cold_ms(fn, reps=10, n=10):
+    """Device ms of one call with a cold L2: ``reps`` x (a 128 MB write
+    that evicts the 50 MB L2, then the call) in one CUDA graph, less the
+    writes alone."""
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=DEV)
+    both = graph_ms(lambda: (flush.zero_(), fn()), reps=reps, n=n)
+    alone = graph_ms(flush.zero_, reps=reps, n=n)
+    return both - alone
 
 
 def nbytes(*ts):
@@ -441,11 +526,11 @@ def phase_kernels():
         a = torch.sigmoid(rnd((B, S, W))) * 0.2 + 0.8
         return a, rnd((B, S, W)) * 0.1, rnd((B, W))
 
-    def wkv_inputs(B, NH, S, hs, dt):
+    def wkv_inputs(B, NH, S, hs, dt, lw_min=-3.0):
         r, k, v = (rnd((B, S, NH, hs), dt) for _ in range(3))
-        # lw spread over [-3, -0.05], as rwkv6-3b's decay_base reaches
+        # lw spread over [lw_min, -0.05]; rwkv6-3b's decay_base reaches -3
         lw = -torch.exp(torch.empty((B, S, NH, hs), device=dev).uniform_(
-            float(np.log(0.05)), float(np.log(3.0)), generator=g))
+            float(np.log(0.05)), float(np.log(-lw_min)), generator=g))
         return r, k, v, lw, rnd((NH, hs)) * 0.3, rnd((B, NH, hs, hs)) * 0.3
 
     shapes = rung_shapes()
@@ -504,16 +589,21 @@ def phase_kernels():
                 dec_plain(q, kc, vc, lens, window)), ATOL[name],
                 f"{name} B={B} H={H} KVH={KVH} hd={hd} Smax={Smax} "
                 f"window={window}")
-        for B, NH, S, hs in WKV_SWEEP + wkv_rungs + \
-                (smoke_wkv if smoke_only else []):
-            r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, dt)
+        for (B, NH, S, hs), lw_min in itertools.product(
+                WKV_SWEEP + WKV_EDGES + wkv_rungs
+                + (smoke_wkv if smoke_only else []), WKV_LW_MIN):
+            r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, dt, lw_min)
             y_ref, s_ref = wkv6_ref(r, k, v, lw, u, s0)
             state = s0.clone()
-            y, _ = wkv_ops.wkv6(r, k, v, lw, u, state, s_out=state)
+            y, s = wkv_ops.wkv6(r, k, v, lw, u, state, s_out=state)
+            if s is not state:
+                raise AssertionError("rwkv6_scan: s_out is not s0")
             tol = WKV_ATOL if name == "float32" else ATOL[name]
-            check("rwkv6_scan", max(err(y, y_ref), err(state, s_ref)), tol,
-                  f"{name} B={B} NH={NH} S={S} hs={hs} from a nonzero "
-                  "state")
+            route = ("rwkv6_chunked" if wkv_ops.chunked_route(S)
+                     else "rwkv6_scan")
+            check(route, max(err(y, y_ref), err(state, s_ref)), tol,
+                  f"{name} B={B} NH={NH} S={S} hs={hs} lw >= {lw_min} "
+                  "from a nonzero state written over s0")
     for B, S, W in SCAN_SWEEP + scan_rungs + smoke_scan:
         a, b, h0 = scan_inputs(B, S, W)
         h_ref, hl_ref = rglru_scan_ref(a, b, h0)
@@ -610,14 +700,20 @@ def phase_kernels():
         # S = w*S + k v^T (3 hs^2), plus exp(lw), u*k, its dot with r and
         # the bonus row (6 hs)
         flops = B * S * NH * (5 * hs + 6) * hs
-        rows["rwkv6_scan"][tag] = timed_row(
+        kern = functools.partial(wkv_ops.wkv6, r, k, v, lw, u, state,
+                                 s_out=state)
+        route = "rwkv6_chunked" if wkv_ops.chunked_route(S) else "rwkv6_scan"
+        rows[route][tag] = row = timed_row(
             f"r/k/v ({B},{S},{NH},{hs}) bf16, lw f32, state "
-            f"({B},{NH},{hs},{hs}) f32", e,
-            functools.partial(wkv_ops.wkv6, r, k, v, lw, u, state,
-                              s_out=state),
+            f"({B},{NH},{hs},{hs}) f32", e, kern,
             lambda: wkv6_ref(r, k, v, lw, u, s0), None,
             nbytes(r, k, v, lw, u, s0, y, state), flops, PEAK_FP32_FLOPS,
             plain_reps=2)
+        if route == "rwkv6_chunked":
+            row["cold_ms"] = cold_ms(kern)
+            row["blocks"] = 2 * NH * B * wkv_ops.n_chunks(S)
+            row["by_kernel_ms"] = {k[k.find("wkv_"):k.find("<")]: t
+                                   for k, t, _c in device_kernels(kern, 20)}
 
     for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
         for S in PREFILL_LENS + ((BINDING_LEN,) if window else ()):
@@ -665,6 +761,11 @@ def phase_kernels():
                    else f"{r['library_ms']:.5f}")
             split = (f"; n_split {r['n_split']} x {r['chunk']} keys, "
                      f"{r['blocks']} blocks" if "n_split" in r else "")
+            if "cold_ms" in r:
+                split = (f"; cold L2 {r['cold_ms']:.5f} ms; "
+                         f"{r['blocks']} blocks in its two chunk kernels; "
+                         f"by kernel (torch.profiler, ms) "
+                         f"{json.dumps(r['by_kernel_ms'])}")
             log(f"  {kname} {tag} [{r['shape']}]: device ms kernel "
                 f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library {lib}, "
                 f"bound {r['bound_ms']:.5f} ({r['bound_by']}, "
@@ -979,17 +1080,19 @@ def device_profile(MDL, eng, prompt_len=256, n=5):
 
 
 def expected_launches(cfg, n_prefills, n_steps):
-    """One launch per layer of each kind per prefill and per decode step."""
+    """One launch per layer of each kind per prefill and per decode step;
+    K4's prefills take its chunked route, its decode steps the
+    recurrence."""
     from repro_torch.models.model import ATTN_KINDS
 
     kinds = cfg.layer_kinds()
     attn = sum(k in ATTN_KINDS for k in kinds)
-    rec = {"rglru_scan": kinds.count("rglru"),
-           "rwkv6_scan": kinds.count("rwkv")}
-    out = {"flash_attention": attn * n_prefills,
-           "decode_attention": attn * n_steps}
-    out.update({k: n * (n_prefills + n_steps) for k, n in rec.items()})
-    return out
+    rwkv = kinds.count("rwkv")
+    return {"flash_attention": attn * n_prefills,
+            "decode_attention": attn * n_steps,
+            "rglru_scan": kinds.count("rglru") * (n_prefills + n_steps),
+            "rwkv6_chunked": rwkv * n_prefills,
+            "rwkv6_scan": rwkv * n_steps}
 
 
 def phase_serve(arch):
@@ -1003,7 +1106,6 @@ def phase_serve(arch):
     cfg = configs.get_config(arch)
     if arch in SERVE_LAYERS:
         cfg = cfg.replace(num_layers=SERVE_LAYERS[arch])
-    ops = ops_modules()
     app = Application(id=f"{arch}/app0", family=cfg.name,
                       variants=build_ladder(cfg))
     full, w050 = app.full, app.variant_by_name(f"{cfg.name}:w050")
@@ -1043,10 +1145,9 @@ def phase_serve(arch):
         def run(tag, eng, batch):
             sid, variant = router.lookup(app.id)
             steps0 = eng.steps
-            for m in ops.values():
-                m.LAUNCHES = 0
+            reset_counts()
             reqs, t0 = serve(workers[sid], variant, batch, tag=tag)
-            got = {k: m.LAUNCHES for k, m in ops.items()}
+            got = read_counts(SERVING)
             steps = eng.steps - steps0
             want = expected_launches(eng.cfg, len(reqs), steps)
             log(f"  {tag}: served {len(reqs)} requests on {sid} {variant}; "
@@ -1228,16 +1329,39 @@ def planner_instance(rng, tc, tv):
                                alpha=rng.choice([0.0, 0.1, 0.25]))
 
 
+def round_against_plain(inputs):
+    """The round kernel on copies of a round's inputs against its plain
+    version (``place_chunk`` + ``upgrade_chunk``) on CPU copies: the
+    (variant, server, upgrade) result and free/head/budget afterwards must
+    be bit-equal. Returns the kernel's result and free/head/budget."""
+    from repro_torch.core.planner.kernels import plan_round_plain
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    card = [t.clone() for t in inputs.args()]
+    cpu = [t.to("cpu", copy=True) for t in inputs.args()]
+    out = k5.plan_round(*card)
+    want = plan_round_plain(*cpu)
+    for name, a, b in zip(("(variant, server, upgrade)", "free", "head",
+                           "budget"), (out, *card[:3]), (want, *cpu[:3])):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"the round kernel's {name} differs from "
+                                 "place_chunk + upgrade_chunk")
+    return out, card[:3]
+
+
 def phase_planner():
-    """plan_greedy_torch on the card against the port's numpy planner:
-    assignments, their order, the unplaced list and the objective bits."""
+    """On each random instance, the round kernel bit-equal to its plain
+    version, and plan_greedy_torch on the card against the port's numpy
+    planner: assignments, their order, the unplaced list and the objective
+    bits."""
     import random
 
     from repro_torch.core import cluster as tc
     from repro_torch.core import variants as tv
     from repro_torch.core.planner import PlannerState, plan_greedy
     from repro_torch.core.planner.torch_backend import (TorchPlanContext,
-                                                        plan_greedy_torch)
+                                                        plan_greedy_torch,
+                                                        prepare_round)
 
     # one context for every instance, though each reuses the ids a0, a1,
     # ... with other ladders: its demand cache must follow the new apps
@@ -1248,6 +1372,11 @@ def phase_planner():
             cluster, apps, kw = planner_instance(random.Random(seed), tc, tv)
             r_np = plan_greedy(apps, cluster, state=PlannerState(
                 cluster, subscribe=False, dtype=dtype), **kw)
+            st = PlannerState(cluster, subscribe=False, dtype=dtype)
+            st.sync()
+            round_against_plain(prepare_round(
+                apps, cluster, st, kw["exclude"], kw["site_exclude"],
+                kw["alpha"], ctx)[3])
             r_t = plan_greedy_torch(apps, cluster, state=PlannerState(
                 cluster, subscribe=False, dtype=dtype), ctx=ctx, **kw)
             got = ([(k, v.name, s) for k, (v, s) in r_t.assignment.items()],
@@ -1260,10 +1389,11 @@ def phase_planner():
                                      f"{seed}: differs from numpy")
             n_apps += len(apps)
             n_placed += len(r_np.assignment)
-    log(f"  plan_greedy_torch on the card equals numpy on "
-        f"{2 * PLANNER_INSTANCES} instances (float64 and float32, "
-        f"{n_apps} apps, {n_placed} placed): assignments, order, unplaced, "
-        f"objective bits")
+    log(f"  the round kernel equals place_chunk + upgrade_chunk (results "
+        f"and free/head/budget bits), and plan_greedy_torch on the card "
+        f"equals numpy, on {2 * PLANNER_INSTANCES} instances (float64 and "
+        f"float32, {n_apps} apps, {n_placed} placed): assignments, order, "
+        f"unplaced, objective bits")
 
 
 def sim_config(backend):
@@ -1280,17 +1410,39 @@ def sim_config(backend):
         traffic_chunk_s=c["chunk_s"], event_mode="epoch")
 
 
-def profile_round(planner, req, n=3):
+def device_kernels(fn, n):
+    """torch.profiler over ``n`` calls of ``fn``: [(kernel or copy name,
+    device ms per call, count per call)], longest first. A session that
+    recorded no device work at all is run again, up to three times (the
+    tracer has once come back empty after a short window); then []."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if kern:
+            return sorted(kern, key=lambda x: -x[1])
+    return []
+
+
+def profile_round(planner, req, n=3, n_prof=10):
     """One failover round's planning, replayed from its request before the
     round itself runs (a round is a pure function of the state it reads),
     in a run of its own whose plan walls are not reported: a first replay
     that also syncs the failed servers' rows into the device mirror, then
     the host wall of unprofiled replays ending in their host reads, and
-    the device busy time of a profiled one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.planner.torch_backend import plan_greedy_torch
+    the device busy time per replay of ``n_prof`` profiled ones."""
+    from repro_torch.core.planner.torch_backend import (plan_greedy_torch,
+                                                        prepare_round)
 
     exclude, site_exclude = req.exclusions()
 
@@ -1306,26 +1458,23 @@ def profile_round(planner, req, n=3):
         t0 = time.perf_counter()
         replay()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        replay()
-        torch.cuda.synchronize()
-    kern = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    kern.sort(key=lambda kv: -kv[1])
-    busy = sum(t for _, t in kern)
-    n_kernels = sum(e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0)
+    kern = device_kernels(replay, n_prof)
     wall = statistics.median(walls)
+    if not kern:
+        log("  torch.profiler recorded no device work in three sessions of "
+            "the replayed round: its device busy time, idle share and "
+            "kernels are not measured")
+    busy = sum(t for _, t, _c in kern) if kern else float("nan")
+    n_kernels = sum(c for _, _t, c in kern) if kern else float("nan")
+    req.state.sync()
+    inputs = prepare_round(req.apps, req.cluster, req.state, exclude,
+                           site_exclude, req.alpha, planner._ctx)[3]
     return {"n_apps": len(req.apps), "wall_ms": wall,
             "device_kernels": n_kernels,
             "device_busy_ms": busy, "idle_share": 1 - busy / wall,
-            "k5_device_ms": sum(t for k, t in kern
-                                if "masked_argmax" in k),
-            "top": [(k[:50], t) for k, t in kern[:5]]}
+            "k5_device_ms": sum(t for k, t, _c in kern
+                                if any(n in k for n in K5_KERNEL_NAMES)),
+            "top": [(k[:50], t) for k, t, _c in kern[:5]], "inputs": inputs}
 
 
 def run_sim(backend, k5, profile=False):
@@ -1353,10 +1502,12 @@ def run_sim(backend, k5, profile=False):
         if (profile and flag["failover"] and req.apps
                 and flag["profile"] is None):
             flag["profile"] = profile_round(planner, req)
-        n0 = k5.LAUNCHES
+        n0, r0 = k5.LAUNCHES, k5.ROUND_LAUNCHES
         res = plan(req)
         rounds.append({"n_apps": len(req.apps), "wall_s": res.wall_s,
-                       "k5": k5.LAUNCHES - n0,
+                       "round_launches": k5.ROUND_LAUNCHES - r0,
+                       "argmax_launches": (k5.LAUNCHES - n0)
+                       - (k5.ROUND_LAUNCHES - r0),
                        "failover": flag["failover"]})
         return res
 
@@ -1391,9 +1542,9 @@ def phase_sim():
     from repro_torch.kernels.planner_argmax import ops as k5
 
     out = {}
-    k5.LAUNCHES = 0
+    reset_counts()
     runs = {"torch": run_sim("torch", k5)}
-    launches = k5.LAUNCHES
+    launches = read_counts(("planner_round", "planner_argmax"))
     runs["numpy"] = run_sim("numpy", k5)
     prof = run_sim("torch", k5, profile=True)[3]
     if prof is None:
@@ -1421,28 +1572,106 @@ def phase_sim():
         raise AssertionError("the cell's records differ between the torch "
                              "and numpy planner backends")
     t = out["torch"]
-    if not t["torch_rounds"] or not launches:
+    n_round = launches["planner_round"]
+    if not t["torch_rounds"] or not n_round:
         raise AssertionError("the torch run planned no round on the card")
+    planned = [r for r in runs["torch"][2] if r["n_apps"]]
+    if any(r["round_launches"] != 1 or r["argmax_launches"]
+           for r in planned) or launches["planner_argmax"]:
+        raise AssertionError("a round on the card was not one launch of "
+                             f"the round kernel: {launches}")
     t["k5_launches"] = launches
     log(f"  records, placement and traffic summary equal between torch and "
         f"numpy ({t['n_records']} records, recovery rate "
-        f"{t['recovery_rate']}); K5 launches on the torch run {launches} in "
-        f"{t['torch_rounds']} rounds ({launches / t['torch_rounds']:.1f} "
-        f"per round)")
+        f"{t['recovery_rate']}); round kernel launches on the torch run "
+        f"{n_round} in {t['torch_rounds']} rounds "
+        f"({n_round / t['torch_rounds']:.1f} per round; one in each of the "
+        f"{len(planned)} rounds with apps), standalone argmax launches "
+        f"{launches['planner_argmax']}")
     for name in ("torch", "numpy"):
         o = out[name]
         log(f"  {name}: plan_wall_s {o['plan_wall_s']:.6f}, peak failover "
             f"plan phase {o['plan_peak_s']:.6f} s, setup {o['setup_s']:.3f} "
             f"s, scenario {o['run_s']:.3f} s")
+    inputs = prof.pop("inputs")
     t["profiled_failover_round"] = p = prof
     log(f"  one failover round on the card, replayed in a third run "
         f"({p['n_apps']} apps): host wall "
         f"{p['wall_ms']:.3f} ms, device busy {p['device_busy_ms']:.3f} ms, "
         f"device idle share {p['idle_share']:.4f}; {p['device_kernels']} "
-        f"device kernels and copies ({p['device_kernels'] / p['n_apps']:.1f} "
-        f"per app); K5 device {p['k5_device_ms']:.3f} ms; top "
+        f"device kernels and copies per replay "
+        f"({p['device_kernels'] / p['n_apps']:.3f} per app); K5 device "
+        f"{p['k5_device_ms']:.3f} ms; top "
         f"{json.dumps(p['top'])}")
-    return out, launches
+    row, argmax_launches = round_row(inputs)
+    return out, launches["planner_round"], row, argmax_launches
+
+
+def round_row(inputs):
+    """The replayed failover round on the round kernel, bit-equal to its
+    plain version on the CPU and on the card, timed beside the plain
+    version on the card and the bound. The plain run on the card is the
+    standalone argmax's counted path (one launch per app). Returns (row,
+    standalone argmax launches)."""
+    from repro_torch.core.planner.kernels import plan_round_plain
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    out, state = round_against_plain(inputs)
+    args = inputs.args()
+    work = [t.clone() for t in args]
+
+    def restore():
+        for w, a in zip(work[:3], args[:3]):
+            w.copy_(a)
+
+    def kernel():
+        restore()
+        k5.plan_round(*work)
+
+    plain_args = [t.clone() for t in args]
+    reset_counts()
+    plain_out = plan_round_plain(*plain_args)
+    torch.cuda.synchronize()
+    launches = read_counts(("planner_argmax",))["planner_argmax"]
+    if not torch.equal(plain_out, out) or not all(
+            torch.equal(a, b) for a, b in zip(plain_args[:3], state)):
+        raise AssertionError("the plain round on the card differs from the "
+                             "round kernel")
+
+    def plain():
+        restore()
+        plan_round_plain(*work)
+
+    ms = graph_ms(kernel, reps=5, n=10) - graph_ms(restore, reps=5, n=10)
+    plain_ms = eager_ms(plain, n=3, warmup=1)
+    # each input read once, each output written once; the comparisons the
+    # sequential algorithm needs for this round's data: every variant an
+    # app tries up to the one placed (all of them when unplaced), over the
+    # alive servers, R thresholds and one headroom compare each, and the
+    # upgrade tests
+    A, V, R = inputs.dm.shape
+    S_alive = int(inputs.alive.sum())
+    jr = out[0].cpu().numpy()
+    nv = (inputs.stop - inputs.start).cpu().numpy()
+    tried = np.where(jr < nv, jr + 1, nv)
+    jc = (inputs.start.cpu().numpy() + jr)[jr < nv]
+    ops = int(tried.sum()) * S_alive * (R + 1) + int(jc.sum()) * 2 * R
+    n_bytes = nbytes(*args) + nbytes(*args[:3]) + out.numel() * 4
+    b_ms, b_by = bound(n_bytes, ops, PEAK_FP32_FLOPS)
+    row = dict(shape=f"{A} apps x {V} variant columns x {R} resources over "
+               f"{inputs.free.shape[0]} servers ({S_alive} alive), "
+               f"{str(inputs.free.dtype)[6:]} state", max_abs_err=0.0,
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, peak="fp32 non-tensor", n_apps=A,
+               per_app_us=ms * 1e3 / A, eager_ms=eager_ms(kernel, n=5))
+    log(f"  planner_round failover round [{row['shape']}]: device ms kernel "
+        f"{ms:.5f} ({row['per_app_us']:.3f} us per app in the chain), "
+        f"plain (place_chunk + upgrade_chunk on the card, eager) "
+        f"{plain_ms:.5f}, library none, bound {b_ms:.6f} ({b_by}); eager "
+        f"call {row['eager_ms']:.5f} ms; standalone argmax launches of the "
+        f"plain run {launches}; bit-equal to the plain run on the CPU and "
+        f"on the card")
+    return row, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1455,13 +1684,11 @@ def phase_testbed_smoke():
     counter is zeroed just before the testbed run and read just after."""
     from repro_torch.experiment import ExperimentSpec, run_experiment
 
-    ops = all_ops()
     spec = ExperimentSpec(backend="testbed", **TESTBED_SPEC)
-    for m in ops.values():
-        m.LAUNCHES = 0
+    reset_counts()
     t0 = time.monotonic()
     tb = run_experiment(spec)
-    launches = {k: m.LAUNCHES for k, m in ops.items()}
+    launches = read_counts()
     tb_wall = time.monotonic() - t0
     sim = run_experiment(spec.with_(backend="sim"))
     t = tb.traffic
@@ -1492,7 +1719,7 @@ def phase_testbed_smoke():
         raise AssertionError(f"client MTTR {t.client_mttr_avg}")
     if not all(st.ok > 0 for st in stats.values()):
         raise AssertionError(f"an app's clients got no answer: {stats}")
-    idle = [k for k in KERNELS if k != "int8_matmul" and not launches[k]]
+    idle = [k for k in KERNELS if k not in STANDALONE and not launches[k]]
     if idle:
         raise AssertionError(f"{idle} never launched in the testbed run")
     log(f"  testbed == sim failover choices {tb.recovery_by_app()}; "
@@ -1522,12 +1749,10 @@ def phase_testbed_full():
         apps.append(Application(id=f"{arch}-app{i}", family=arch,
                                 variants=build_ladder(cfg), critical=True))
     victim = apps[-1].id
-    ops = all_ops()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for m in ops.values():
-        m.LAUNCHES = 0
+    reset_counts()
     tb = MiniTestbed(apps=apps, n_sites=3, servers_per_site=2,
                      headroom=0.35, seed=SEED + 1)
     loads = []                     # (server, variant, wall s) of each load
@@ -1556,7 +1781,7 @@ def phase_testbed_full():
         t_kill = min(tb._kill_times.values())
     finally:
         tb.shutdown()
-    launches = {k: m.LAUNCHES for k, m in ops.items()}
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     recs = [r for r in out["records"] if r.app_id == victim]
     st = out["client_stats"][victim]
@@ -1615,26 +1840,48 @@ def sass_counts(name, opcode):
     return counts
 
 
+def ptxas_spills(lines):
+    """``{function: spill line}`` for every function of a ptxas log whose
+    spill stores or loads are not 0."""
+    out, fn = {}, None
+    for ln in lines:
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([\w$]+)", ln)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
+            out[fn] = ln.strip()
+    return out
+
+
+# the functions that must not spill: K1/K2, K4's chunked kernels, K5's
+# round kernel
+NO_SPILL = {"flash_attention": "", "decode_attention": "",
+            "rwkv6_scan": "wkv_chunk", "planner_argmax": "plan_round"}
+
+
 def phase_build():
     """Build every kernel (one nvcc each, all at once), print each
-    kernel's ptxas registers and spills, fail on any spill in K1/K2, and
-    print the HMMA count of each of K1's bf16 (tensor-core)
-    instantiations, failing if one has none."""
+    kernel's ptxas registers and spills, fail on any spill in K1/K2, K4's
+    chunked kernels or K5's round kernel, and print the HMMA count of
+    each of K1's bf16 (tensor-core) instantiations, failing if one has
+    none, and the HMMA count of K4's chunked kernels."""
     from repro_torch.kernels import _build
 
+    packages = sorted({v[0] for v in KERNELS.values()})
     t0 = time.monotonic()
-    secs = _build.build(list(KERNELS))
+    secs = _build.build(packages)
     log(f"  built {sorted(secs)} in {time.monotonic() - t0:.2f} s "
         f"(per kernel {json.dumps({k: round(v, 2) for k, v in secs.items()})})")
-    for name in KERNELS:
+    for name in packages:
         lines = (_build.BUILD_DIR / f"{name}.log").read_text().splitlines()
         regs = [ln.split(":", 1)[1].strip() for ln in lines
                 if "registers" in ln]
         spills = sorted({ln.strip() for ln in lines if "spill" in ln})
         log(f"  ptxas {name}: {'; '.join(regs)} | {'; '.join(spills)}")
-        if name in ("flash_attention", "decode_attention"):
-            spilled = [ln for ln in lines if re.search(
-                r"[1-9]\d* bytes spill (stores|loads)", ln)]
+        if name in NO_SPILL:
+            spilled = {fn: ln for fn, ln in ptxas_spills(lines).items()
+                       if NO_SPILL[name] in fn}
             if spilled:
                 raise AssertionError(f"ptxas spills in {name}: {spilled}")
     hmma = {f"hd {m.group(1)}": n
@@ -1645,6 +1892,13 @@ def phase_build():
     if len(hmma) != 5 or not all(hmma.values()):
         raise AssertionError(f"K1's bf16 kernels lack tensor-core mma: "
                              f"{hmma}")
+    wkv = {fn: n for fn, n in sass_counts("rwkv6_scan", "HMMA").items()
+           if "wkv_chunk_state" in fn or "wkv_chunk_out" in fn}
+    log(f"  HMMA instructions in K4's chunked kernels: "
+        f"{json.dumps(sorted(wkv.values()))}")
+    if len(wkv) != 16 or not all(wkv.values()):
+        raise AssertionError(f"K4's chunked kernels lack tensor-core mma: "
+                             f"{wkv}")
 
 
 def main() -> int:
@@ -1701,7 +1955,8 @@ def main() -> int:
     t0 = time.monotonic()
     rows["planner_argmax"] = phase_argmax()
     phase_planner()
-    _, k5_launches = phase_sim()
+    _, k5_launches, round_row_, argmax_launches = phase_sim()
+    rows["planner_round"] = {KERNELS["planner_round"][3]: round_row_}
     log(f"  phase 5 took {time.monotonic() - t0:.1f} s")
 
     log("phase 6: the live failover testbed on the card")
@@ -1713,15 +1968,17 @@ def main() -> int:
     log(f"  phase 6 (b) took {time.monotonic() - t0:.1f} s")
 
     kernels = []
-    for name, (src, replaces, headline) in KERNELS.items():
+    for name, (_pkg, src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
         if name == "int8_matmul":
             by_path = {INT8_PATH: k6_launches}
+        elif name == "planner_argmax":
+            by_path = {ARGMAX_PATH: argmax_launches}
         else:
             by_path = {f"{arch}:{tag}": n[name]
                        for arch, runs in launches.items()
                        for tag, n in runs.items() if n.get(name)}
-            if name == "planner_argmax":
+            if name == "planner_round":
                 by_path[f"sim {SIM_CELL['scenario']} torch"] = k5_launches
             by_path["testbed smoke (phase 6a)"] = tb_smoke[name]
             by_path["testbed full width (phase 6b)"] = tb_full[name]
@@ -1743,7 +2000,9 @@ def main() -> int:
             "launches_by_path": by_path,
             "rows": {tag: {k: x[k] for k in ("shape", "ms", "plain_ms",
                                              "library_ms", "bound_ms",
-                                             "bound_by", "max_abs_err")}
+                                             "bound_by", "max_abs_err",
+                                             "cold_ms", "per_app_us")
+                           if k in x}
                      for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")
     log(smi)

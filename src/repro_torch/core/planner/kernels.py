@@ -1,9 +1,13 @@
 """The planner's inner loops on device tensors (the ``torch`` backend).
 
-The port of ``repro/core/planner/kernels.py``. Three primitives, each a
-sequence of PyTorch operations on the tensors of a `DeviceMirror`
-(planner/torch_backend.py), with K5 (``kernels/planner_argmax``) as the
-worst-fit reduction:
+The port of ``repro/core/planner/kernels.py``. A planning round is
+``plan_round``: on the card, one launch of K5's round kernel
+(``kernels/planner_argmax``, ``plan_round``), which runs Algorithm 1's
+Lines 7-14 for every app of the round with the masked-argmax reduction
+inline; on the CPU, its plain version ``plan_round_plain``, which is
+these primitives, each a sequence of PyTorch operations on the tensors
+of a `DeviceMirror` (planner/torch_backend.py), with K5's masked argmax
+as the worst-fit reduction:
 
   * ``place_chunk`` — Algorithm 1's degradation loop (Lines 7-12) and
     worst-fit (Line 9) for a round's apps, in placement order,
@@ -20,8 +24,8 @@ round-up thresholds of ``torch_backend._cmp_thresholds``; in-place
 updates of an f32 state replay numpy's compute-in-f64-then-cast with
 explicit ``.to(torch.float64)`` / ``.to(state dtype)`` (a 0-dim f64
 tensor would not promote an f32 one in torch); every argmax keeps the
-first-maximum rule. No operation here reads a value back to the host:
-the caller reads the placements once and the upgrades once per round.
+first-maximum rule. The round kernel does the same operations (its
+header says how).
 
 The degradation loop tests variants ``start..`` in order and stops at
 the first one that passes the α-budget and has a feasible server.
@@ -38,6 +42,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.kernels.planner_argmax import ops as k5
 from repro_torch.kernels.planner_argmax.ops import masked_argmax
 
 _EPS = 1e-9
@@ -151,6 +156,53 @@ def upgrade_chunk(free: torch.Tensor, head: torch.Tensor,
     return up
 
 
+def dense_allowed(alive: torch.Tensor, excl_off: torch.Tensor,
+                  excl_row: torch.Tensor) -> torch.Tensor:
+    """(A, S) bool: ``alive`` with each app's excluded rows cleared, from
+    the CSR form (``excl_off`` (A + 1) offsets into ``excl_row``)."""
+    A = excl_off.numel() - 1
+    allowed = alive.repeat(A, 1)
+    app = torch.repeat_interleave(
+        torch.arange(A, device=alive.device),
+        (excl_off[1:] - excl_off[:-1]).long())
+    allowed[app, excl_row.long()] = False
+    return allowed
+
+
+def plan_round_plain(free, head, budget, cap, alive, excl_off, excl_row,
+                     dm, dmc, start, stop) -> torch.Tensor:
+    """The plain version of K5's round kernel: ``place_chunk`` then
+    ``upgrade_chunk`` over the dense ``allowed`` of the CSR exclusions.
+    Same arguments, updates and (3, A) int32 result as
+    ``kernels.planner_argmax.ops.plan_round``."""
+    a, b = start.tolist(), stop.tolist()
+    j, k = place_chunk(free, head, budget, cap,
+                       dense_allowed(alive, excl_off, excl_row), dm, dmc,
+                       a, b)
+    jr, kr = torch.stack([j, k]).tolist()
+    placed = [x < s1 - s0 for x, s0, s1 in zip(jr, a, b)]
+    jc = [x + s0 if p else -1 for x, s0, p in zip(jr, a, placed)]
+    kp = [x if p else -1 for x, p in zip(kr, placed)]
+    up = upgrade_chunk(free, head, budget, cap, dm, jc, kp)
+    return torch.stack([j, torch.tensor(kp, dtype=torch.int32,
+                                        device=j.device), up])
+
+
+def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
+               dmc, start, stop) -> torch.Tensor:
+    """One planning round (Lines 7-14) for A apps in placement order:
+    K5's round kernel on the card, ``plan_round_plain`` on the CPU; free,
+    head and budget are updated in place. See
+    ``kernels.planner_argmax.ops.plan_round`` for the arguments and the
+    (3, A) int32 result (variant relative to start, server row, upgraded
+    variant)."""
+    args = (free, head, budget, cap, alive, excl_off, excl_row, dm, dmc,
+            start, stop)
+    if free.device.type == "cuda":
+        return k5.plan_round(*args)
+    return plan_round_plain(*args)
+
+
 def scatter_rows(free: torch.Tensor, head: torch.Tensor,
                  alive: torch.Tensor, idx: torch.Tensor,
                  frows: torch.Tensor, hrows: torch.Tensor,
@@ -163,5 +215,5 @@ def scatter_rows(free: torch.Tensor, head: torch.Tensor,
     alive.index_put_((idx,), arows)
 
 
-__all__ = ["place_chunk", "resolve_backend", "scatter_rows",
-           "upgrade_chunk"]
+__all__ = ["dense_allowed", "place_chunk", "plan_round", "plan_round_plain",
+           "resolve_backend", "scatter_rows", "upgrade_chunk"]

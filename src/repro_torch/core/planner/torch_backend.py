@@ -3,8 +3,9 @@ to numpy.
 
 The port of ``repro/core/planner/jax_backend.py``. `plan_greedy_torch`
 is a transliteration of `vectorized.plan_greedy` (default rank, no
-latency/score/tiebreak hooks) whose inner loops run as the chunk
-functions of planner/kernels.py, with the worst-fit reduction on K5. The
+latency/score/tiebreak hooks) whose inner loops run as one
+``plan_round`` (planner/kernels.py): on the card one launch of K5's round
+kernel, on the CPU its plain version. The
 host side is byte for byte the numpy prologue — ordering, ordered-sum δ
 and α-budget, per-app exclusion rows — so the device path and the numpy
 path consume identical inputs; the device side replays every comparison,
@@ -24,13 +25,13 @@ Two pieces of persistent state make repeated rounds cheap:
     per round by row index (apps are immutable, so rows never go
     stale).
 
-A round reads its placements back to the host once and its upgrades
-once.
+A round reads its placements and upgrades back to the host once.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Set
 
 import numpy as np
@@ -38,8 +39,7 @@ import torch
 
 from repro_torch.core.cluster import RESOURCES
 from repro_torch.core.planner.base import HeuristicResult, eq1_objective
-from repro_torch.core.planner.kernels import (place_chunk, scatter_rows,
-                                              upgrade_chunk)
+from repro_torch.core.planner.kernels import plan_round, scatter_rows
 from repro_torch.core.planner.state import PlannerState, _ordered_sum
 from repro_torch.core.variants import Application
 from repro_torch.device import DeviceLike, resolve_device
@@ -198,42 +198,41 @@ class TorchPlanContext:
         return m
 
 
-def plan_greedy_torch(apps: List[Application], cluster=None, *,
-                      state: Optional[PlannerState] = None,
-                      exclude: Optional[Dict[str, Set[str]]] = None,
-                      site_exclude: Optional[Dict[str, Set[str]]] = None,
-                      alpha: float = 0.0,
-                      ctx: Optional[TorchPlanContext] = None,
-                      device: DeviceLike = None,
-                      ) -> HeuristicResult:
-    """Algorithm 1 on device tensors — same contract (and same bits) as
-    `vectorized.plan_greedy` with the default worst-fit rank.
+@dataclass
+class RoundInputs:
+    """One planning round's operands on the device, apps in placement
+    order: the arguments of ``plan_round``, in its order. free and head
+    are the round's working copies (clones of the mirror's rows)."""
+    free: torch.Tensor
+    head: torch.Tensor
+    budget: torch.Tensor
+    cap: torch.Tensor
+    alive: torch.Tensor
+    excl_off: torch.Tensor
+    excl_row: torch.Tensor
+    dm: torch.Tensor
+    dmc: torch.Tensor
+    start: torch.Tensor
+    stop: torch.Tensor
 
-    ``device`` (used when no ``ctx`` is given) is ``cuda`` unless the
-    caller asks for ``cpu``. Unsupported hooks (latency_fn / score_fn /
-    tiebreak_fn / site_index) are the caller's responsibility: the
-    planner policies route such requests to the numpy path."""
-    t0 = time.time()
-    exclude = exclude or {}
-    site_exclude = site_exclude or {}
-    if state is None:
-        assert cluster is not None, "need a cluster or a PlannerState"
-        state = PlannerState(cluster, subscribe=False)
-    if cluster is None:
-        cluster = state.cluster
-    if ctx is None:
-        ctx = TorchPlanContext(device)
-    state.sync()
+    def args(self):
+        return (self.free, self.head, self.budget, self.cap, self.alive,
+                self.excl_off, self.excl_row, self.dm, self.dmc, self.start,
+                self.stop)
 
+
+def prepare_round(apps: List[Application], cluster, state: PlannerState,
+                  exclude: Dict[str, Set[str]],
+                  site_exclude: Dict[str, Set[str]], alpha: float,
+                  ctx: TorchPlanContext):
+    """The host prologue of a round — the numpy path's exact code — and
+    its upload: (placement order, start (A,), nvar (A,), RoundInputs);
+    only the order, and None for the rest, when there is nothing to plan.
+    ``state`` must be synced."""
     order = sorted(apps, key=lambda a: (not a.critical, -a.request_rate))
     rows = state.alive_rows()
     if not apps or rows.size == 0:
-        assignment: Dict[str, tuple] = {}
-        return HeuristicResult(assignment, [a.id for a in order],
-                               time.time() - t0,
-                               eq1_objective(assignment, apps))
-
-    S = int(state.alive.size)                    # full rows; dead masked
+        return order, None, None, None
     R = len(RESOURCES)
 
     # host prologue — the numpy path's exact code over the gathered
@@ -263,62 +262,86 @@ def plan_greedy_torch(apps: List[Application], cluster=None, *,
     start = np.where(okv.any(axis=1), okv.argmax(axis=1), nvar - 1)
 
     # sparse per-app exclusion rows as GLOBAL row indices (the device
-    # masks the full alive vector, so dead rows are harmless to list);
-    # as (app, row) pairs, so no row index is padded
-    excl_app: List[int] = []
+    # masks the full alive vector, so dead rows are harmless to list),
+    # grouped by app in placement order: CSR offsets by app
+    excl_n = np.zeros(len(order) + 1, np.int64)
     excl_row: List[int] = []
     for a_i, app in enumerate(order):
         for sid in exclude.get(app.id, ()):
             if sid:
                 i = state.sidx.get(sid)
                 if i is not None:
-                    excl_app.append(a_i)
                     excl_row.append(i)
         for site in site_exclude.get(app.id, ()):
             for sid in cluster.sites.get(site, ()):
                 i = state.sidx.get(sid)
                 if i is not None:
-                    excl_app.append(a_i)
                     excl_row.append(i)
-    excl_app_np = np.asarray(excl_app, np.int64)
-    excl_row_np = np.asarray(excl_row, np.int64)
-
-    dmc_all = _cmp_thresholds(dm_all, state.dtype)
+        excl_n[a_i + 1] = len(excl_row)
 
     dev = ctx.device
     free0, head0, alive, cap = ctx.mirror(state).arrays()
-    free, head = free0.clone(), head0.clone()    # the round's working copy
-    budget = _to(budget0, dev)
+    i32 = np.int32
+    inputs = RoundInputs(
+        free=free0.clone(), head=head0.clone(), budget=_to(budget0, dev),
+        cap=cap, alive=alive, excl_off=_to(excl_n.astype(i32), dev),
+        excl_row=_to(np.asarray(excl_row, i32), dev), dm=_to(dm_all, dev),
+        dmc=_to(_cmp_thresholds(dm_all, state.dtype), dev),
+        start=_to(start.astype(i32), dev), stop=_to(nvar.astype(i32), dev))
+    return order, start, nvar, inputs
 
-    A = len(order)
-    dm = _to(dm_all, dev)
-    allowed = alive.repeat(A, 1)
-    allowed[_to(excl_app_np, dev), _to(excl_row_np, dev)] = False
-    j, k = place_chunk(free, head, budget, cap, allowed, dm,
-                       _to(dmc_all, dev), start, nvar)
-    jk = torch.stack([j, k]).cpu().numpy()           # one read: placements
-    placed = jk[0] < nvar - start
-    jj = np.where(placed, jk[0] + start, -1)
-    kk = np.where(placed, jk[1], -1)
 
-    # upgrade pass over the SAME order once every app is placed —
-    # matching the numpy path's two sequential sweeps
-    ju = upgrade_chunk(free, head, budget, cap, dm, jj,
-                       kk).cpu().numpy()             # one read: upgrades
+def plan_greedy_torch(apps: List[Application], cluster=None, *,
+                      state: Optional[PlannerState] = None,
+                      exclude: Optional[Dict[str, Set[str]]] = None,
+                      site_exclude: Optional[Dict[str, Set[str]]] = None,
+                      alpha: float = 0.0,
+                      ctx: Optional[TorchPlanContext] = None,
+                      device: DeviceLike = None,
+                      ) -> HeuristicResult:
+    """Algorithm 1 on device tensors — same contract (and same bits) as
+    `vectorized.plan_greedy` with the default worst-fit rank.
+
+    ``device`` (used when no ``ctx`` is given) is ``cuda`` unless the
+    caller asks for ``cpu``. Unsupported hooks (latency_fn / score_fn /
+    tiebreak_fn / site_index) are the caller's responsibility: the
+    planner policies route such requests to the numpy path."""
+    t0 = time.time()
+    if state is None:
+        assert cluster is not None, "need a cluster or a PlannerState"
+        state = PlannerState(cluster, subscribe=False)
+    if cluster is None:
+        cluster = state.cluster
+    if ctx is None:
+        ctx = TorchPlanContext(device)
+    state.sync()
+
+    order, start, nvar, inputs = prepare_round(
+        apps, cluster, state, exclude or {}, site_exclude or {}, alpha, ctx)
+    if inputs is None:
+        assignment: Dict[str, tuple] = {}
+        return HeuristicResult(assignment, [a.id for a in order],
+                               time.time() - t0,
+                               eq1_objective(assignment, apps))
+    # Lines 7-14 over the round's apps, then one read: placements and
+    # upgrades
+    jku = plan_round(*inputs.args()).cpu().numpy()
+    placed = jku[0] < nvar - start
+    jj = np.where(placed, jku[0] + start, -1)
 
     assignment = {}
     unplaced: List[str] = []
     for i, app in enumerate(order):
-        k = int(kk[i])
-        if k < 0:
+        if not placed[i]:
             unplaced.append(app.id)
             continue
-        j = int(ju[i]) if int(ju[i]) >= 0 else int(jj[i])
-        assignment[app.id] = (app.variants[j], state.server_ids[k])
+        j = int(jku[2, i]) if int(jku[2, i]) >= 0 else int(jj[i])
+        assignment[app.id] = (app.variants[j],
+                              state.server_ids[int(jku[1, i])])
 
     return HeuristicResult(assignment, unplaced, time.time() - t0,
                            eq1_objective(assignment, apps))
 
 
-__all__ = ["AppMatrixCache", "DeviceMirror", "TorchPlanContext",
-           "plan_greedy_torch"]
+__all__ = ["AppMatrixCache", "DeviceMirror", "RoundInputs",
+           "TorchPlanContext", "plan_greedy_torch", "prepare_round"]

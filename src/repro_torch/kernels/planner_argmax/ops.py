@@ -1,13 +1,19 @@
-"""Wrapper of the planner's masked-argmax kernel (K5,
-``csrc/planner_argmax.cu``), and its plain PyTorch version.
+"""Wrappers of the planner's kernels (K5, ``csrc/planner_argmax.cu``).
 
-One contract (first maximum among masked-in entries, (-1, -inf) on an
-empty mask; see ref.py), for one (S,) row or a batch of (N, S) rows whose
-values may share one column (row stride 0). A CUDA tensor launches the
-kernel on the current stream (no synchronize); a CPU tensor runs
-``masked_argmax_torch``. There is no fallback from one to the other.
+``masked_argmax``: the masked first maximum (first maximum among
+masked-in entries, (-1, -inf) on an empty mask; see ref.py), for one (S,)
+row or a batch of (N, S) rows whose values may share one column (row
+stride 0), the direct counterpart of the TPU kernel. A CUDA tensor
+launches the kernel on the current stream (no synchronize); a CPU tensor
+runs ``masked_argmax_torch``. There is no fallback from one to the other.
 Both are exact — comparisons only — so the choice never changes a
 placement.
+
+``plan_round``: a whole planning round of the greedy planner in one
+launch, with that reduction inline (the kernel's header says how). It
+takes CUDA tensors only; its plain version is the planner's
+``place_chunk`` + ``upgrade_chunk`` (core/planner/kernels.py), which
+``core.planner.kernels.plan_round`` runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,12 +27,15 @@ from repro_torch.kernels import _build
 
 NAME = "planner_argmax"
 
-# kernel launches since the last reset; read and reset by chip_smoke.py
+# launches of either K5 kernel, and of the round kernel alone, since the
+# last reset; read and reset by chip_smoke.py
 LAUNCHES = 0
+ROUND_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _DTYPES = {torch.float32: 0, torch.float64: 2}
+MAX_RESOURCES = 4            # the round kernel's MAXR
 
 
 def _lib():
@@ -103,4 +112,67 @@ def masked_argmax(values: torch.Tensor, mask: torch.Tensor):
     return idx, val
 
 
-__all__ = ["masked_argmax", "masked_argmax_torch"]
+def _round_lib():
+    lib = _build.load(NAME)
+    fn = lib.faillite_plan_round
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+    return fn
+
+
+def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
+               dmc, start, stop):
+    """One planning round on the card (Algorithm 1, Lines 7-14) for A apps
+    in placement order, in one launch; free (S, R), head (S,) in the state
+    dtype and budget (R,) f64 are updated in place.
+
+    cap (S, R) state dtype; alive (S,) bool; excl_off int32 (A + 1) and
+    excl_row int32: each app's excluded server rows, as CSR; dm (A, V, R)
+    f64 demands and dmc (A, V, R) state-dtype feasibility thresholds;
+    start/stop int32 (A,): the variants app i may try. Returns int32
+    (3, A) on the card: the placed variant relative to start (stop -
+    start when unplaced), the server row (-1 when unplaced) and the
+    upgraded variant (-1 for none)."""
+    global LAUNCHES, ROUND_LAUNCHES
+    st = free.dtype
+    if st not in _DTYPES:
+        raise TypeError(f"want a float32 or float64 state; got {st}")
+    S, R = free.shape
+    A, V = dm.shape[:2]
+    if not 1 <= R <= MAX_RESOURCES:
+        raise ValueError(f"want 1..{MAX_RESOURCES} resources; got {R}")
+    want = {"free": (free, st, (S, R)), "head": (head, st, (S,)),
+            "budget": (budget, torch.float64, (R,)),
+            "cap": (cap, st, (S, R)), "alive": (alive, torch.bool, (S,)),
+            "excl_off": (excl_off, torch.int32, (A + 1,)),
+            "excl_row": (excl_row, torch.int32, (excl_row.numel(),)),
+            "dm": (dm, torch.float64, (A, V, R)),
+            "dmc": (dmc, st, (A, V, R)),
+            "start": (start, torch.int32, (A,)),
+            "stop": (stop, torch.int32, (A,))}
+    for name, (t, dt, shape) in want.items():
+        if t.device.type != "cuda" or t.device != free.device:
+            raise ValueError(f"plan_round takes tensors on one CUDA device; "
+                             f"{name} is on {t.device}")
+        if t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} {shape}; "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    out = torch.empty((3, A), dtype=torch.int32, device=free.device)
+    stamp = torch.empty(S, dtype=torch.int32, device=free.device)
+    fn = _round_lib()
+    stream = torch.cuda.current_stream(free.device).cuda_stream
+    err = fn(free.data_ptr(), head.data_ptr(), budget.data_ptr(),
+             cap.data_ptr(), alive.data_ptr(), excl_off.data_ptr(),
+             excl_row.data_ptr(), dm.data_ptr(), dmc.data_ptr(),
+             start.data_ptr(), stop.data_ptr(), out.data_ptr(),
+             stamp.data_ptr(), A, S, V, R, _DTYPES[st], stream)
+    _build.check(err, NAME)
+    with _count_lock:
+        LAUNCHES += 1
+        ROUND_LAUNCHES += 1
+    return out
+
+
+__all__ = ["masked_argmax", "masked_argmax_torch", "plan_round"]

@@ -1,10 +1,17 @@
-"""Wrapper of the WKV-6 kernel (``csrc/rwkv6_scan.cu``).
+"""Wrapper of the WKV-6 kernels (``csrc/rwkv6_scan.cu``).
 
 Takes the model's (B, S, nh, hs) layout: r, k, v in the activation dtype,
 the log-decay lw in fp32, the bonus u (nh, hs) and the initial state s0
-(B, nh, hs, hs) fp32. A CUDA tensor launches the kernel on the current
-stream (no synchronize); a CPU tensor runs the plain version in
+(B, nh, hs, hs) fp32. A CUDA tensor launches on the current stream (no
+synchronize); a CPU tensor runs the plain version ``wkv6_ref`` in
 ``ref.py``. There is no fallback from one to the other.
+
+The route follows from the shape alone (``chunked_route``): a prefill
+(S > 1) runs the chunk-parallel kernels on the tensor cores (three
+launches over chunks of ``CHUNK`` steps; its plain version is
+``wkv6_chunked_ref``), a decode step (S = 1) the recurrence. Both are
+counted once per call in ``LAUNCHES``; ``CHUNKED_LAUNCHES`` counts the
+calls that took the chunked route.
 """
 
 from __future__ import annotations
@@ -19,10 +26,13 @@ from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
 NAME = "rwkv6_scan"
 HEAD_SIZES = (8, 16, 32, 64)
+CHUNK = 32                 # steps per chunk of the prefill route (csrc)
 DTYPES = _build.DTYPE_CODES
 
-# kernel launches since the last reset; read and reset by chip_smoke.py
+# wrapper calls that launched, either route, and those of the chunked
+# route, since the last reset; read and reset by chip_smoke.py
 LAUNCHES = 0
+CHUNKED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -35,6 +45,25 @@ def _lib():
         fn.restype = _I
         fn.argtypes = [_P] * 8 + [_I] * 5 + [_L] * 19 + [_P]
     return fn
+
+
+def _lib_chunked():
+    lib = _build.load(NAME)
+    fn = lib.faillite_wkv6_chunked
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 10 + [_I] * 5 + [_L] * 19 + [_P]
+    return fn
+
+
+def chunked_route(S: int) -> bool:
+    """A prefill (S > 1) takes the chunked kernels, a decode step the
+    recurrence: decided from the sequence length alone."""
+    return S > 1
+
+
+def n_chunks(S: int) -> int:
+    return -(-S // CHUNK)
 
 
 def _check(r, k, v, lw, u, s0, s_out):
@@ -59,13 +88,35 @@ def _check(r, k, v, lw, u, s0, s_out):
         raise TypeError("lw, u, s0 and s_out must be float32")
 
 
+def _launch(r, k, v, lw, u, s0, y, s_out, stream):
+    """Launch the route of ``chunked_route(S)`` on checked tensors."""
+    B, S, nh, hs = r.shape
+    strides = (DTYPES[r.dtype], B, nh, S, hs,
+               *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *lw.stride()[:3], *y.stride()[:3],
+               *s0.stride()[:2], *s_out.stride()[:2], stream)
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr())
+    if not chunked_route(S):
+        return _lib()(*ptrs, *strides)
+    nc = n_chunks(S)
+    # each chunk's state increment, then its incoming state: never s0 or
+    # s_out, which may be one tensor
+    states = torch.empty((B, nh, nc, hs, hs), dtype=torch.float32,
+                         device=r.device)
+    decay = torch.empty((B, nh, nc, hs), dtype=torch.float32,
+                        device=r.device)
+    return _lib_chunked()(*ptrs, states.data_ptr(), decay.data_ptr(),
+                          *strides)
+
+
 def wkv6(r, k, v, lw, u, s0, *, s_out=None):
     """WKV-6 from state ``s0`` -> (y (B,S,nh,hs) fp32, s_out).
 
     When ``s_out`` is given, the final state is written into it (it may be
     ``s0`` itself) and returned.
     """
-    global LAUNCHES
+    global LAUNCHES, CHUNKED_LAUNCHES
     _check(r, k, v, lw, u, s0, s_out)
     if r.device.type == "cpu":
         y, s = wkv6_ref(r, k, v, lw, u, s0)
@@ -88,15 +139,9 @@ def wkv6(r, k, v, lw, u, s0, *, s_out=None):
                          "contiguous, and each (b, h) block of s0/s_out "
                          "contiguous")
     y = torch.empty((B, S, nh, hs), dtype=torch.float32, device=r.device)
-    fn = _lib()
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-             u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr(),
-             DTYPES[r.dtype], B, nh, S, hs,
-             *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             *lw.stride()[:3], *y.stride()[:3],
-             *s0.stride()[:2], *s_out.stride()[:2], stream)
-    _build.check(err, NAME)
+    _build.check(_launch(r, k, v, lw, u, s0, y, s_out, stream), NAME)
     with _count_lock:
         LAUNCHES += 1
+        CHUNKED_LAUNCHES += chunked_route(S)
     return y, s_out

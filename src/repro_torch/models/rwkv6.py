@@ -6,12 +6,13 @@ Core recurrence per head (state S in R^{hs x hs}, data-dependent decay w_t):
     y_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-On a CUDA tensor ``time_mix`` runs the recurrence in K4
-(``kernels.rwkv6_scan``) for the prefill and the decode step alike, from
-the slot's state and with the log-decay as the model computes it (no
-clamp). On a CPU tensor it runs the ports of the JAX model's two forms,
-``wkv_chunked`` (prefill) and ``wkv_scan`` (decode). A state passed in is
-updated in place and returned; the JAX functions return a new state.
+On a CUDA tensor ``time_mix`` runs K4 (``kernels.rwkv6_scan``): its
+chunked tensor-core kernels for a prefill, the form of ``wkv_chunked``
+below, and its recurrence for a decode step, from the slot's state and
+with the log-decay as the model computes it (no clamp). On a CPU tensor
+it runs the ports of the JAX model's two forms, ``wkv_chunked`` (prefill)
+and ``wkv_scan`` (decode). A state passed in is updated in place and
+returned; the JAX functions return a new state.
 """
 
 from __future__ import annotations

@@ -6,10 +6,12 @@ the JAX package, so it runs on a machine that has only PyTorch:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1/K2 f32 2e-5, bf16 2e-2 and K3 1e-5, K4 5e-4 (those of
-tests/test_kernels.py); K4 in bf16 2e-2; fp32 model logits 1e-3; K6
+tests/test_kernels.py), both of its routes (the chunked prefill and the
+recurrent decode step); K4 in bf16 2e-2; fp32 model logits 1e-3; K6
 (the int8 matmul) 10x those, as tests/test_kernels.py:117. K5 (the
-planner's masked argmax) and the torch planner backend are exact. The
-last test runs the live testbed's smoke spec on the card.
+planner's masked argmax and its round kernel) and the torch planner
+backend are exact. The last test runs the live testbed's smoke spec on
+the card.
 """
 
 import numpy as np
@@ -337,15 +339,173 @@ def test_torch_planner_on_card_matches_numpy(cuda, dtype):
         kw = dict(exclude=exclude, alpha=rng.choice([0.0, 0.1]))
         r_np = plan_greedy(apps, cluster, state=PlannerState(
             cluster, subscribe=False, dtype=dtype), **kw)
-        k5.LAUNCHES = 0
+        k5.LAUNCHES = k5.ROUND_LAUNCHES = 0
         r_t = plan_greedy_torch(apps, cluster, state=PlannerState(
             cluster, subscribe=False, dtype=dtype), ctx=ctx, **kw)
-        assert k5.LAUNCHES == len(apps)
+        assert k5.ROUND_LAUNCHES == k5.LAUNCHES == 1     # one per round
         assert {k: (v.name, s) for k, (v, s) in r_np.assignment.items()} \
             == {k: (v.name, s) for k, (v, s) in r_t.assignment.items()}
         assert list(r_np.assignment) == list(r_t.assignment)
         assert r_np.unplaced == r_t.unplaced
         assert r_np.objective == r_t.objective
+
+
+# K4's chunked route: prompts no multiple of the 32-step chunk and shorter
+# than it, and rwkv6-3b's full width
+WKV_CHUNKED = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8), (1, 2, 2, 32),
+               (1, 2, 31, 64), (2, 3, 95, 16), (1, 40, 256, 64),
+               (1, 40, 250, 64)]
+
+
+def _wkv_case(r, B, NH, S, hs, lw_min, dt, dev):
+    """chip_smoke.py's K4 inputs: r, k, v standard normal, lw over
+    [lw_min, -0.05], u and s0 at 0.3 x standard normal."""
+    rkv = [torch.from_numpy(r.standard_normal((B, S, NH, hs))
+                            .astype(np.float32)).to(dev).to(dt)
+           for _ in range(3)]
+    lw = -np.exp(r.uniform(np.log(0.05), np.log(-lw_min), (B, S, NH, hs)))
+    u = r.standard_normal((NH, hs)) * 0.3
+    s0 = r.standard_normal((B, NH, hs, hs)) * 0.3
+    return rkv + [torch.from_numpy(x.astype(np.float32)).to(dev)
+                  for x in (lw, u, s0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv_chunked_kernel_matches_plain_on_cuda(cuda, dtype):
+    """K4's chunked route (every S > 1) against the recurrence's plain
+    version, from a nonzero state written over s0 itself, lw spread to -3
+    and down to -20 (below the TPU kernel's clamp)."""
+    dt = TDT[dtype]
+    tol = WKV_ATOL if dtype == "float32" else ATOL[dtype]
+    r = np.random.default_rng(6)
+    for (B, NH, S, hs), lw_min in [(c, m) for c in WKV_CHUNKED
+                                   for m in (-3.0, -20.0)]:
+        *rkv, lw, u, s0 = _wkv_case(r, B, NH, S, hs, lw_min, dt, cuda)
+        y_ref, s_ref = wkv6_ref(*rkv, lw, u, s0)
+        state = s0.clone()
+        wkv_ops.LAUNCHES = wkv_ops.CHUNKED_LAUNCHES = 0
+        y, s = wkv_ops.wkv6(*rkv, lw, u, state, s_out=state)
+        torch.cuda.synchronize()
+        assert wkv_ops.LAUNCHES == wkv_ops.CHUNKED_LAUNCHES == 1
+        assert s is state
+        assert torch.isfinite(y).all()
+        assert _max_err(y, y_ref) < tol, (B, NH, S, hs, lw_min)
+        assert _max_err(state, s_ref) < tol, (B, NH, S, hs, lw_min)
+
+
+def _round_cases(dtype, cuda):
+    """Planning rounds as ``prepare_round`` builds them (random clusters
+    with dead servers, server and site exclusions, up to six variants),
+    and, for an f32 state, rounds built on rounding edges."""
+    import random
+
+    from repro_torch.core.cluster import make_cluster
+    from repro_torch.core.planner import PlannerState
+    from repro_torch.core.planner.torch_backend import (TorchPlanContext,
+                                                        _cmp_thresholds,
+                                                        prepare_round)
+    from repro_torch.core.variants import Application, synthetic_family
+
+    ctx = TorchPlanContext(cuda)
+    for seed in range(5):
+        rng = random.Random(seed)
+        cluster = make_cluster(4, 25, mem=rng.uniform(4e9, 24e9))
+        apps = [Application(
+            id=f"a{i}", family=f"f{i}",
+            variants=synthetic_family(f"f{i}", rng.uniform(0.3e9, 6e9),
+                                      n_variants=rng.randint(2, 6),
+                                      spread=rng.uniform(1.5, 12.0)),
+            request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5)
+            for i in range(rng.randint(50, 400))]
+        sids = list(cluster.servers)
+        for sid in rng.sample(sids, 10):
+            cluster.fail_server(sid)
+        exclude = {a.id: {rng.choice(sids)} for a in apps
+                   if rng.random() < 0.7}
+        site_exclude = {a.id: {f"site{rng.randrange(4)}"} for a in apps
+                        if rng.random() < 0.3}
+        st = PlannerState(cluster, subscribe=False, dtype=dtype)
+        st.sync()
+        yield prepare_round(apps, cluster, st, exclude, site_exclude,
+                            rng.choice([0.0, 0.1]), ctx)[3].args()
+    if dtype != "float32":
+        return
+    g = np.random.default_rng(21)
+    for _ in range(10):               # tests/test_torch_planner.py's edges
+        S, A, V = 8, 24, 4
+        cap = np.stack([g.uniform(8e9, 24e9, S), g.uniform(0.5, 2.0, S)],
+                       axis=1).astype(np.float32)
+        free = (cap * g.uniform(0.1, 0.6, (S, 2))).astype(np.float32)
+        dm = np.empty((A, V, 2))
+        for i in range(A):
+            mem = g.uniform(0.3e9, 4e9) * (
+                g.uniform(1.5, 12.0) ** (-np.arange(V) / (V - 1)))
+            dm[i] = np.stack([mem, mem / 32e9], axis=1)
+            if g.random() < 0.5:
+                s, j = g.integers(S), g.integers(V)
+                f = np.float64(free[s, 0])
+                dm[i, j, 0] = f + g.integers(-2, 3) * np.spacing(f)
+                dm[i, j, 1] = 0.0
+        budget = free.astype(np.float64).sum(axis=0) * g.uniform(0.6, 1.0)
+        allowed = g.random((A, S)) < 0.85
+        rows = [np.flatnonzero(~allowed[i]) for i in range(A)]
+        off = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+        yield tuple(torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+                    for x in (free, (free / cap).min(axis=1), budget, cap,
+                              np.ones(S, bool), off.astype(np.int32),
+                              np.concatenate(rows).astype(np.int32), dm,
+                              _cmp_thresholds(dm, np.float32),
+                              g.integers(0, V, A).astype(np.int32),
+                              np.full(A, V, np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_planner_round_kernel_matches_plain_on_cuda(cuda, dtype):
+    """K5's round kernel, one launch per round, bit-equal to its plain
+    version (``place_chunk`` + ``upgrade_chunk``, on the CPU): placements,
+    upgrades and the free/head/budget tensors after the round."""
+    from repro_torch.core.planner.kernels import plan_round_plain
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    n = 0
+    for args in _round_cases(dtype, cuda):
+        card = [t.clone() for t in args]
+        cpu = [t.to("cpu", copy=True) for t in args]
+        k5.ROUND_LAUNCHES = 0
+        out = k5.plan_round(*card)
+        torch.cuda.synchronize()
+        assert k5.ROUND_LAUNCHES == 1
+        want = plan_round_plain(*cpu)
+        assert torch.equal(out.cpu(), want)
+        for a, b in zip(card[:3], cpu[:3]):
+            assert torch.equal(a.cpu(), b)
+        n += 1
+    assert n == (15 if dtype == "float32" else 5)
+
+
+@pytest.mark.cuda
+def test_chunked_and_round_kernels_deterministic(cuda):
+    """Two launches of K4's chunked route (bf16, rwkv6-3b's prefill) and
+    of K5's round kernel on the same inputs give the same bits: fixed
+    reduction orders, no atomics."""
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    r = np.random.default_rng(7)
+    *rkv, lw, u, s0 = _wkv_case(r, 1, 40, 256, 64, -3.0, torch.bfloat16,
+                                cuda)
+    (y1, s1), (y2, s2) = (wkv_ops.wkv6(*rkv, lw, u, s0) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    for dtype in ("float32", "float64"):
+        args = next(iter(_round_cases(dtype, cuda)))
+        runs = []
+        for _ in range(2):
+            work = [t.clone() for t in args]
+            runs.append([k5.plan_round(*work)] + work[:3])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda

@@ -346,6 +346,186 @@ def test_place_and_upgrade_update_the_state_like_numpy(dtype):
         assert np.array_equal(t["budget"].numpy(), b_np)
 
 
+def _old_dense_allowed(order, st, cluster, exclude, site_exclude):
+    """The (A, S) ``allowed`` mask as the torch backend built it before
+    the round kernel: alive rows, each app's excluded (app, row) pairs
+    cleared."""
+    pairs = []
+    for a_i, app in enumerate(order):
+        for sid in exclude.get(app.id, ()):
+            if sid and st.sidx.get(sid) is not None:
+                pairs.append((a_i, st.sidx[sid]))
+        for site in site_exclude.get(app.id, ()):
+            for sid in cluster.sites.get(site, ()):
+                if st.sidx.get(sid) is not None:
+                    pairs.append((a_i, st.sidx[sid]))
+    allowed = torch.from_numpy(st.alive.copy()).repeat(len(order), 1)
+    if pairs:
+        ai, ri = zip(*pairs)
+        allowed[list(ai), list(ri)] = False
+    return allowed
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_round_csr_exclusions_match_dense_allowed(dtype):
+    """A round's exclusions as CSR offsets by app (what the round kernel
+    reads) expand to the dense (A, S) ``allowed`` mask the backend built
+    before; ``plan_round`` on the CSR form leaves the same placements,
+    upgrades and free/head/budget bits as ``place_chunk`` +
+    ``upgrade_chunk`` on the dense form; and the plan equals numpy's
+    ``plan_greedy``, on random instances with server and site
+    exclusions, dead servers and up to six variants."""
+    from repro_torch.core.planner.torch_backend import prepare_round
+    for seed in range(12):
+        cl_j, apps_j, kw_j = _instance("jax", seed, 40, 6)
+        cl_t, apps_t, kw_t = _instance("torch", seed, 40, 6)
+        st = tstate.PlannerState(cl_t, subscribe=False, dtype=dtype)
+        st.sync()
+        order, start, nvar, inp = prepare_round(
+            apps_t, cl_t, st, kw_t["exclude"], kw_t["site_exclude"],
+            kw_t["alpha"], TorchPlanContext("cpu"))
+        dense = _old_dense_allowed(order, st, cl_t, kw_t["exclude"],
+                                   kw_t["site_exclude"])
+        assert torch.equal(tkernels.dense_allowed(
+            inp.alive, inp.excl_off, inp.excl_row), dense)
+        csr = [t.clone() for t in inp.args()]
+        out = tkernels.plan_round(*csr)
+        old = [t.clone() for t in inp.args()]
+        free, head, budget, cap = old[:4]
+        dm, dmc = old[7], old[8]
+        j, k = tkernels.place_chunk(free, head, budget, cap, dense, dm, dmc,
+                                    start, nvar)
+        placed = j.numpy() < nvar - start
+        jc = np.where(placed, j.numpy() + start, -1)
+        kc = np.where(placed, k.numpy(), -1)
+        up = tkernels.upgrade_chunk(free, head, budget, cap, dm, jc, kc)
+        assert np.array_equal(out.numpy(), np.stack([j.numpy(), kc,
+                                                     up.numpy()]))
+        for a, b in zip(csr[:3], old[:3]):
+            assert torch.equal(a, b)
+        r_np = jvec.plan_greedy(apps_j, cl_j, state=jstate.PlannerState(
+            cl_j, subscribe=False, dtype=dtype), **kw_j)
+        r_t = plan_greedy_torch(apps_t, cl_t, state=tstate.PlannerState(
+            cl_t, subscribe=False, dtype=dtype),
+            ctx=TorchPlanContext("cpu"), **kw_t)
+        assert _norm(r_np) == _norm(r_t)
+        assert list(r_np.assignment) == list(r_t.assignment)
+        assert r_np.objective == r_t.objective
+
+
+def _edge_round(rng, S=8, A=24, V=4):
+    """An f32 round built to sit on rounding edges: server rows near the
+    demands, and some demands set to a server's free memory give or take a
+    few f64 ulps, so the f32 thresholds, the f64-then-cast subtract and
+    the two-cast upgrade all matter. Returns (free, cap, budget, allowed,
+    dm, start)."""
+    cap = np.stack([rng.uniform(8e9, 24e9, S), rng.uniform(0.5, 2.0, S)],
+                   axis=1).astype(np.float32)
+    free = (cap * rng.uniform(0.1, 0.6, (S, 2))).astype(np.float32)
+    dm = np.empty((A, V, 2))
+    for i in range(A):
+        mem = rng.uniform(0.3e9, 4e9) * (
+            rng.uniform(1.5, 12.0) ** (-np.arange(V) / (V - 1)))
+        dm[i] = np.stack([mem, mem / 32e9], axis=1)
+        if rng.random() < 0.5:
+            s, j = rng.integers(S), rng.integers(V)
+            f = np.float64(free[s, 0])
+            dm[i, j, 0] = f + rng.integers(-2, 3) * np.spacing(f)
+            dm[i, j, 1] = 0.0
+    budget = free.astype(np.float64).sum(axis=0) * rng.uniform(0.6, 1.0)
+    allowed = rng.random((A, S)) < 0.85
+    start = rng.integers(0, V, A)
+    return free, cap, budget, allowed, dm, start
+
+
+def _numpy_round(free, cap, budget, allowed, dm, start, edges):
+    """vectorized.plan_greedy's Lines 7-14 on numpy arrays in place: every
+    app placed in order, then every upgrade; ``edges`` counts the updates
+    where an f32 subtract, a fused upgrade delta or an f32 compare would
+    have rounded otherwise."""
+    eps = 1e-9
+    head = (free / cap).min(axis=1)
+    A, V, _ = dm.shape
+    chosen = []
+    for i in range(A):
+        for j in range(start[i], V):
+            d = dm[i, j]
+            if not (budget >= d - eps).all():
+                continue
+            feas = (free >= d - eps).all(axis=1) & allowed[i]
+            f32 = (free >= (d - eps).astype(np.float32)).all(axis=1) \
+                & allowed[i]
+            edges["threshold"] += int((feas != f32).any())
+            if not feas.any():
+                continue
+            k = int(np.argmax(np.where(feas, head, -np.inf)))
+            alt = free[k] - d.astype(np.float32)
+            free[k] -= d
+            edges["subtract"] += int((alt != free[k]).any())
+            budget -= d
+            head[k] = (free[k] / cap[k]).min()
+            chosen.append((i, j, k))
+            break
+        else:
+            chosen.append((i, -1, -1))
+    ups = []
+    for i, j, k in chosen:
+        if k < 0 or j == 0:
+            ups.append(-1)
+            continue
+        extras = dm[i, :j] - dm[i, j]
+        ok = np.flatnonzero((free[k] >= extras - eps).all(axis=1)
+                            & (budget >= extras - eps).all(axis=1))
+        if not ok.size:
+            ups.append(-1)
+            continue
+        ju = int(ok[0])
+        fused = (free[k] + (dm[i, j] - dm[i, ju])).astype(np.float32)
+        free[k] += dm[i, j]
+        budget += dm[i, j]
+        free[k] -= dm[i, ju]
+        budget -= dm[i, ju]
+        edges["upgrade"] += int((fused != free[k]).any())
+        head[k] = (free[k] / cap[k]).min()
+        ups.append(ju)
+    return head, chosen, ups
+
+
+def test_round_rounding_edges_match_numpy():
+    """``plan_round`` on an f32 state sits on numpy's rounding edges and
+    matches it bit for bit: the f64-then-cast subtract of Line 11, the
+    give-then-take two casts of the upgrade and the round-up f32
+    thresholds, on rounds built so that each of those edges is hit (an f32
+    subtract, a fused delta or an f32 compare would round otherwise)."""
+    from repro_torch.core.planner.torch_backend import _cmp_thresholds
+    rng = np.random.default_rng(21)
+    edges = {"threshold": 0, "subtract": 0, "upgrade": 0}
+    for _ in range(30):
+        free, cap, budget, allowed, dm, start = _edge_round(rng)
+        A, V, _ = dm.shape
+        f_np, b_np = free.copy(), budget.copy()
+        h_np, chosen, ups = _numpy_round(f_np, cap, b_np, allowed, dm,
+                                         start, edges)
+        rows = [np.flatnonzero(~allowed[i]) for i in range(A)]
+        off = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+        t = [torch.from_numpy(x) for x in (
+            free.copy(), (free / cap).min(axis=1), budget.copy(), cap,
+            np.ones(free.shape[0], bool), off.astype(np.int32),
+            np.concatenate(rows).astype(np.int32), dm,
+            _cmp_thresholds(dm, np.float32), start.astype(np.int32),
+            np.full(A, V, np.int32))]
+        out = tkernels.plan_round(*t).numpy()
+        placed = out[0] < V - start
+        got = [(i, int(out[0, i] + start[i]) if placed[i] else -1,
+                int(out[1, i])) for i in range(A)]
+        assert got == chosen
+        assert out[2].tolist() == ups
+        assert np.array_equal(t[0].numpy(), f_np)
+        assert np.array_equal(t[1].numpy(), h_np)
+        assert np.array_equal(t[2].numpy(), b_np)
+    assert all(edges.values()), edges
+
+
 def test_reused_context_follows_new_apps_under_old_ids():
     """A planning context reused across rounds whose apps reuse ids with
     other variant ladders plans each round with its own apps' demands
