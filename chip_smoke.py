@@ -8,7 +8,10 @@ and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
 1. build: the six CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-   one ``nvcc`` each, all at once;
+   one ``nvcc`` each, all at once; no ptxas spill in K1-K3, K4's chunked
+   kernels, K5's round kernel or K6's tensor-core kernels, and HMMA
+   instructions in every bf16 instantiation of K1, K4's chunked kernels
+   and K6;
 2. kernels: each against its plain PyTorch version on the card —
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
    tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
@@ -22,13 +25,22 @@ and prints no result):
    recurrence of a decode step, each checked on the sweep, every rung,
    prompts that are no multiple of the 32-step chunk or shorter than it,
    lw spread to -3 and down to -20 (below the TPU kernel's clamp), the
-   final state written over s0. The main-path shapes are timed in bf16
+   final state written over s0. K3 has two routes too: the (a, b) scan
+   (the TPU kernel's contract) and the gated route the model calls (the
+   gates' elementwise tail fused in, f32 and bf16 gate inputs, within
+   1e-5 of the largest |h|), each on the sweep, every rung, prompts that
+   are no multiple of a chunk, a 2100-token prompt, S = 1 and a ragged
+   width; the gated route is timed beside its "before", the unfused
+   ``_gates`` tail + the (a, b) route, whose launches are counted on that
+   standalone path. The main-path shapes are timed in bf16
    (the smoke rungs in f32) beside the plain version, the bound, and, for
    K1/K2, PyTorch's ``scaled_dot_product_attention`` (a yardstick the
    port never calls); K4's prefill rows also with a cold L2.
    K6 (the weight-only int8 matmul, which no model calls, as in the JAX
-   package) on the sweep of tests/test_kernels.py:102-104 in f32 and bf16
-   and at qwen3-32b's MLP shapes in bf16, within 10x the K1 tolerances,
+   package) on the sweep of tests/test_kernels.py:102-104 in f32 and bf16,
+   on its split-K and one-range tensor-core routes at reduced widths
+   (an unaligned int8 row, an f32 output, two launches bit-equal) and at
+   qwen3-32b's MLP shapes in bf16, within 10x the K1 tolerances,
    timed beside its plain version, the bound and
    ``torch._weight_int8pack_mm`` (a yardstick); its launches are counted
    on a standalone int8 SwiGLU over qwen3-32b's quantized MLP weights;
@@ -37,7 +49,8 @@ and prints no result):
    (rglru, rglru) tail, a 2100-token prompt so the local layer's window
    binds and its ring buffer wraps), rwkv6-3b (2 layers, 250 tokens),
    qwen3-32b (2 layers, qk_norm) and qwen3-moe-30b-a3b (2 layers, 128
-   experts top-8), all at full width, prefill and three decode steps;
+   experts top-8), all at full width, prefill and three decode steps
+   (recurrentgemma-2b's through K3's gated route only);
 4. serve and fail over, for each of qwen2.5-3b, recurrentgemma-2b,
    rwkv6-3b and qwen3-32b (32 of its 64 layers: two full-width copies do
    not fit 80 GB at full depth) in turn: worker A serves the ladder's
@@ -48,8 +61,13 @@ and prints no result):
    B's warm ``:w050`` and B serves the same requests, its tokens held
    against the model's own prefill/decode on B's params. Kernel launch
    counters are zeroed before and read after each serving run and must
-   show one launch per layer of each kind per prefill and per decode step.
-   Each arch is unloaded before the next one loads;
+   show one launch per layer of each kind per prefill and per decode step
+   (K3 on its gated route only). Each arch's ``:full`` decode step and
+   256-token prefill are timed (host wall, CUDA-graph device time) and
+   profiled (device ms by kernel, device kernels a call); for
+   recurrentgemma-2b also with its RG-LRU scan unfused (the ``_gates``
+   tail in PyTorch, then K3's (a, b) route), as it ran before the gated
+   route. Each arch is unloaded before the next one loads;
 5. the simulator's failover planning (the greedy planner's ``torch``
    backend, which plans each round in one launch of K5's round kernel,
    the masked argmax inline): the standalone masked argmax (the TPU
@@ -85,7 +103,8 @@ and prints no result):
    then the same spec on the ``sim`` backend: equal failover choices
    (``recovery_by_app()``), recovery rate 1, detection under 1 s, a
    finite client MTTR, no error other than a dead server, and every
-   kernel of the path (K1-K3, both K4 routes, the K5 round kernel)
+   kernel of the path (K1, K2, K3's gated route, both K4 routes, the K5
+   round kernel)
    launched during the testbed run (counters zeroed just before it, read
    just after); (b) a ``MiniTestbed`` of two critical apps at full width
    (qwen2.5-3b's published config, qwen3-32b's published widths at 8
@@ -100,6 +119,7 @@ lists every kernel with its launches, error, times and bound.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
@@ -128,6 +148,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_ATOL = 1e-5           # K3, tests/test_kernels.py:77-78
+# K3's gated route: 1e-5 of the largest |h| (at least 1). Its gates are
+# the plain version's operations in the same order, and its scan rounds a
+# chunk's carry (a product of up to S / 32 decays) as the (a, b) route
+# does; the state's magnitude (1 - a^2 small, h up to ~1 / sqrt(1 - a))
+# scales that rounding, so the tolerance is relative to it
+GATED_RTOL = 1e-5
+# operations per element of K3's gated route: two sigmoids (negate, exp,
+# add, divide), log a, exp, 2 log a, exp, 1 - ., max, sqrt, two products,
+# and the scan's multiply-add; an exp, a divide or a sqrt counted as one
+GATED_FLOPS = 19
 WKV_ATOL = 5e-4            # K4 in f32, tests/test_kernels.py:99-100
 LOGIT_ATOL = 1e-3          # fp32 model parity, card vs CPU
 SEED = 0
@@ -150,6 +180,11 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (2, 32, 1, 64, 700, 0),
 ]
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256)]    # :64-68
+# K3's extra rows (B, S, W): prompts that are no multiple of a chunk
+# (S / 32 steps) or shorter than 32, a 2100-token prompt (a chunk walked
+# in groups, a and b recomputed), S = 1, a ragged width
+SCAN_EDGES = [(1, 33, 2560), (2, 7, 64), (1, 2100, 2560), (3, 1, 100),
+              (2, 300, 100)]
 WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8)]  # :82-86
 # ladder rungs whose kernel shapes phase 2 checks and times: the :full and
 # :w050 that phase 4 serves, and qwen2.5-3b's w075 as a reference row
@@ -181,10 +216,15 @@ SMOKE_SLOTS, SMOKE_MAX_LEN, SMOKE_PROMPT = 2, 96, 8
 # K6 at qwen3-32b's MLP: gate/up (M, 5120) x (5120, 25600) and down
 # (M, 25600) x (25600, 5120), at decode (4 slots) and a 256-token prefill
 INT8_SWEEP = [(100, 300, 200), (64, 128, 64), (33, 65, 130)]  # :102-104
+# K6's tensor-core routes at reduced widths (M, K, N): split-K decode
+# (an unaligned row, a ragged K), split-K and one-range prefill
+INT8_ROUTES = [(4, 5120, 1024), (4, 2048, 130), (1, 1000, 256),
+               (16, 4096, 640), (256, 1024, 2048), (100, 520, 390),
+               (256, 512, 25600)]
 INT8_MLP = {"gate/up": (5120, 25600), "down": (25600, 5120)}
 INT8_M = (SLOTS, 256)
 # route -> (kernel package, source, TPU kernel it replaces, headline row
-# of the JSON line); K4 and K5 have two routes each in one source
+# of the JSON line); K3, K4 and K5 have two routes each in one source
 KERNELS = {
     "flash_attention": (
         "flash_attention",
@@ -196,6 +236,11 @@ KERNELS = {
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/decode_attention.py:27",
         "qwen2.5-3b full decode"),
+    "rglru_gated": (
+        "rglru_scan",
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:25",
+        "recurrentgemma-2b full S=256"),
     "rglru_scan": (
         "rglru_scan",
         "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
@@ -228,11 +273,15 @@ KERNELS = {
         "qwen3-32b gate/up M=4"),
 }
 # the serving routes, whose launches phase 4 checks per layer
-SERVING = ("flash_attention", "decode_attention", "rglru_scan",
+SERVING = ("flash_attention", "decode_attention", "rglru_gated",
            "rwkv6_chunked", "rwkv6_scan")
 # routes off the main path, each counted on a standalone path of its own
-STANDALONE = ("planner_argmax", "int8_matmul")
+STANDALONE = ("rglru_scan", "planner_argmax", "int8_matmul")
 INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
+SCAN_PATH = ("standalone (off the main path since the gated route): "
+             "recurrentgemma-2b's RG-LRU unfused, the _gates tail then the "
+             "(a, b) route, a 256-token prefill and decode steps")
+SCAN_PATH_STEPS = 8
 ARGMAX_PATH = ("standalone (off the main path since the round kernel): the "
                "failover round's place_chunk + upgrade_chunk on the card")
 # the smoke :full rungs whose K1/K2 shapes phase 2 times (the attention
@@ -241,14 +290,18 @@ TESTBED_SMOKE_TIMED = ("qwen2.5-3b", "qwen3-32b", "recurrentgemma-2b",
                        "qwen3-moe-30b-a3b")
 # the serving kernels' device names, as torch.profiler reports them: K1's
 # tensor-core (bf16) and scalar (f32) kernels, K2's split and combine
-# passes, K3, K4's recurrence and its three chunked kernels
+# passes, K3's chunked prefill and decode step, K4's recurrence and its
+# three chunked kernels
 PORT_KERNEL_NAMES = ("fa_tc_kernel", "fa_kernel", "dec_split_kernel",
-                     "dec_combine_kernel", "rglru_kernel", "wkv_kernel",
+                     "dec_combine_kernel", "rglru_chunk_kernel",
+                     "rglru_step_kernel", "wkv_kernel",
                      "wkv_chunk_state_kernel", "wkv_chunk_scan_kernel",
                      "wkv_chunk_out_kernel")
 # K5's device names: the standalone argmax and the round kernel
 K5_KERNEL_NAMES = ("masked_argmax_kernel", "plan_round_kernel")
 NO_LIBRARY = {
+    "rglru_gated": "none: no single PyTorch call computes this recurrence "
+                   "or its gates",
     "rglru_scan": "none: no single PyTorch call computes this recurrence",
     "rwkv6_chunked": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
@@ -288,21 +341,23 @@ def all_ops():
 def reset_counts():
     """Zero every wrapper's launch counters."""
     for m in all_ops().values():
-        for name in ("LAUNCHES", "CHUNKED_LAUNCHES", "ROUND_LAUNCHES"):
+        for name in ("LAUNCHES", "GATED_LAUNCHES", "CHUNKED_LAUNCHES",
+                     "ROUND_LAUNCHES"):
             if hasattr(m, name):
                 setattr(m, name, 0)
 
 
 def read_counts(routes=None):
-    """Launches since the last reset, by route (``KERNELS``): K4's chunked
-    prefill and recurrent decode calls, K5's round kernel and standalone
-    argmax apart."""
+    """Launches since the last reset, by route (``KERNELS``): K3's gated
+    and (a, b) calls, K4's chunked prefill and recurrent decode calls, K5's
+    round kernel and standalone argmax apart."""
     m = all_ops()
-    wkv, k5 = m["rwkv6_scan"], m["planner_argmax"]
+    rg, wkv, k5 = m["rglru_scan"], m["rwkv6_scan"], m["planner_argmax"]
     out = {name: m[name].LAUNCHES for name in
-           ("flash_attention", "decode_attention", "rglru_scan",
-            "int8_matmul")}
-    out.update(rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
+           ("flash_attention", "decode_attention", "int8_matmul")}
+    out.update(rglru_gated=rg.GATED_LAUNCHES,
+               rglru_scan=rg.LAUNCHES - rg.GATED_LAUNCHES,
+               rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
                rwkv6_scan=wkv.LAUNCHES - wkv.CHUNKED_LAUNCHES,
                planner_round=k5.ROUND_LAUNCHES,
                planner_argmax=k5.LAUNCHES - k5.ROUND_LAUNCHES)
@@ -495,7 +550,8 @@ def phase_kernels():
         decode_attention_ref as dec_ref
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_ref as fa_ref
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_ref,
+                                                    rglru_scan_ref)
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
     ops = ops_modules()
@@ -525,6 +581,27 @@ def phase_kernels():
     def scan_inputs(B, S, W):
         a = torch.sigmoid(rnd((B, S, W))) * 0.2 + 0.8
         return a, rnd((B, S, W)) * 0.1, rnd((B, W))
+
+    def gated_inputs(B, S, W, dt):
+        """ga, gx, xb (B,S,W) in ``dt``, log_lambda as the model draws it
+        (a in [0.9, 0.999] at r = 1), h0 (B,W)."""
+        a_init = torch.empty(W, device=dev).uniform_(0.9, 0.999, generator=g)
+        lam = torch.log(torch.expm1(-torch.log(a_init) / 8.0))
+        return (rnd((B, S, W), dt), rnd((B, S, W), dt), rnd((B, S, W), dt),
+                lam, rnd((B, W)))
+
+    def gated_err(h, hl, h_ref, hl_ref):
+        """(max abs error, that error over the largest |h|, at least 1)"""
+        e = max(err(h, h_ref), err(hl, hl_ref))
+        return e, e / max(1.0, float(h_ref.abs().max()))
+
+    def gated_case(B, S, W, dt):
+        ga, gx, xb, lam, h0 = gated_inputs(B, S, W, dt)
+        h_ref, hl_ref = rglru_gated_scan_ref(ga, gx, xb, lam, h0)
+        state = h0.clone()
+        h, _ = rg_ops.rglru_gated_scan(ga, gx, xb, lam, state, h_last=state)
+        return (ga, gx, xb, lam, h0, state, h), gated_err(h, state, h_ref,
+                                                          hl_ref)
 
     def wkv_inputs(B, NH, S, hs, dt, lw_min=-3.0):
         r, k, v = (rnd((B, S, NH, hs), dt) for _ in range(3))
@@ -604,13 +681,21 @@ def phase_kernels():
             check(route, max(err(y, y_ref), err(state, s_ref)), tol,
                   f"{name} B={B} NH={NH} S={S} hs={hs} lw >= {lw_min} "
                   "from a nonzero state written over s0")
-    for B, S, W in SCAN_SWEEP + scan_rungs + smoke_scan:
+    for B, S, W in SCAN_SWEEP + SCAN_EDGES + scan_rungs + smoke_scan:
         a, b, h0 = scan_inputs(B, S, W)
         h_ref, hl_ref = rglru_scan_ref(a, b, h0)
         state = h0.clone()
         h, _ = rg_ops.rglru_scan(a, b, state, h_last=state)
         check("rglru_scan", max(err(h, h_ref), err(state, hl_ref)),
               SCAN_ATOL, f"float32 B={B} S={S} W={W} from a nonzero h0")
+        for name, dt in dts.items():
+            _, (e, rel) = gated_case(B, S, W, dt)
+            log(f"  rglru_gated {name} gates B={B} S={S} W={W} from a "
+                f"nonzero h0: max_abs_err {e:.3g}, {rel:.3g} of the largest "
+                f"|h|")
+            if not rel < GATED_RTOL:
+                raise AssertionError(f"rglru_gated {name} {(B, S, W)}: "
+                                     f"{e} ({rel} of the largest |h|)")
 
     # -- main-path shapes, timed --------------------------------------------
     bf16 = torch.bfloat16
@@ -688,6 +773,27 @@ def phase_kernels():
             nbytes(a, b, h0, h, state), 2 * a.numel(), PEAK_FP32_FLOPS,
             plain_reps=2)
 
+    def gated_row(tag, B, S, W, dt=bf16):
+        (ga, gx, xb, lam, h0, state, h), (e, rel) = gated_case(B, S, W, dt)
+        if not rel < GATED_RTOL:
+            raise AssertionError(f"rglru_gated {tag}: {e} ({rel})")
+        dname = str(dt).replace("torch.", "")
+        row = timed_row(
+            f"ga/gx/xb ({B},{S},{W}) {dname}, log_lambda ({W},) f32, h0 "
+            f"({B},{W}) f32", e,
+            functools.partial(rg_ops.rglru_gated_scan, ga, gx, xb, lam,
+                              state, h_last=state),
+            lambda: rglru_gated_scan_ref(ga, gx, xb, lam, h0), None,
+            nbytes(ga, gx, xb, lam, h0, h, state),
+            GATED_FLOPS * ga.numel(), PEAK_FP32_FLOPS,
+            plain_reps=1 if S > 256 else 2)
+        row["rel_err"] = rel
+        # the path before the gated route: the tail of _gates in PyTorch
+        # (a and b through memory), then the (a, b) route
+        row["before_ms"] = graph_ms(functools.partial(
+            rglru_unfused, rg_ops, ga, gx, xb, lam, state, h_last=state))
+        rows["rglru_gated"][tag] = row
+
     def wkv_row(tag, B, S, NH, hs):
         r, k, v, lw, u, s0 = wkv_inputs(B, NH, S, hs, bf16)
         state = s0.clone()
@@ -751,6 +857,15 @@ def phase_kernels():
     for rung, W in shapes["rglru_scan"]:
         scan_row(f"{rung} S=256", 1, 256, W)
         scan_row(f"{rung} decode", SLOTS, 1, W)
+        gated_row(f"{rung} S=256", 1, 256, W)
+        gated_row(f"{rung} decode", SLOTS, 1, W)
+        if rung.endswith(" full"):
+            gated_row(f"{rung} S={BINDING_LEN}", 1, BINDING_LEN, W)
+    for W in smoke["rglru_scan"]:
+        gated_row(f"smoke W={W} S={SMOKE_PROMPT}", 1, SMOKE_PROMPT, W,
+                  dt=torch.float32)
+        gated_row(f"smoke W={W} decode", SMOKE_SLOTS, 1, W,
+                  dt=torch.float32)
     for rung, (NH, hs) in shapes["rwkv6_scan"]:
         wkv_row(f"{rung} S=256", 1, 256, NH, hs)
         wkv_row(f"{rung} decode", SLOTS, 1, NH, hs)
@@ -761,6 +876,10 @@ def phase_kernels():
                    else f"{r['library_ms']:.5f}")
             split = (f"; n_split {r['n_split']} x {r['chunk']} keys, "
                      f"{r['blocks']} blocks" if "n_split" in r else "")
+            if "before_ms" in r:
+                split = (f"; before (the _gates tail + the (a, b) route) "
+                         f"{r['before_ms']:.5f} ms; error relative to the "
+                         f"largest |h| {r['rel_err']:.3g}")
             if "cold_ms" in r:
                 split = (f"; cold L2 {r['cold_ms']:.5f} ms; "
                          f"{r['blocks']} blocks in its two chunk kernels; "
@@ -773,6 +892,63 @@ def phase_kernels():
                 f"max_abs_err {r['max_abs_err']:.3g}{split}")
     torch.cuda.synchronize()
     return rows
+
+
+def rglru_unfused(rg, ga, gx, xb, lam, h0, *, h_last=None):
+    """K3 as the model ran it before the gated route: the elementwise tail
+    of ``_gates`` in PyTorch (a and b written to memory), then the (a, b)
+    route."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_gates_ref
+    a, b = rglru_gates_ref(ga, gx, xb, lam)
+    return rg.rglru_scan(a, b, h0, h_last=h_last)
+
+
+def phase_scan_path():
+    """K3's (a, b) route on a standalone path of its own (the model calls
+    the gated route): recurrentgemma-2b's RG-LRU scan unfused, a 256-token
+    prefill then ``SCAN_PATH_STEPS`` decode steps of 4 slots from the
+    prefill's state, in bf16, checked against the gated route. The
+    counters are zeroed just before and read just after. Returns the
+    (a, b) route's launches."""
+    from repro_torch import configs
+
+    rg = ops_modules()["rglru_scan"]
+    W = configs.get_config("recurrentgemma-2b").rnn_width
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    a_init = torch.empty(W, device=DEV).uniform_(0.9, 0.999, generator=g)
+    lam = torch.log(torch.expm1(-torch.log(a_init) / 8.0))
+
+    def gates(B, S):
+        return [torch.randn((B, S, W), generator=g, device=DEV).to(
+            torch.bfloat16) for _ in range(3)]
+
+    pre = gates(1, 256)
+    steps = [gates(SLOTS, 1) for _ in range(SCAN_PATH_STEPS)]
+    torch.cuda.synchronize()
+    reset_counts()
+    h, state = rglru_unfused(rg, *pre, lam,
+                             torch.zeros((1, W), device=DEV))
+    state = state.expand(SLOTS, W).contiguous()
+    outs = [rglru_unfused(rg, *x, lam, state, h_last=state)[0]
+            for x in steps]
+    torch.cuda.synchronize()
+    got = read_counts(("rglru_scan", "rglru_gated"))
+    want = {"rglru_scan": 1 + SCAN_PATH_STEPS, "rglru_gated": 0}
+    if got != want:
+        raise AssertionError(f"the unfused RG-LRU path launched {got}, "
+                             f"want {want}")
+    hg, sg = rg.rglru_gated_scan(*pre, lam, torch.zeros((1, W), device=DEV))
+    sg = sg.expand(SLOTS, W).contiguous()
+    e = err(h, hg)
+    for x, o in zip(steps, outs):
+        e = max(e, err(o, rg.rglru_gated_scan(*x, lam, sg, h_last=sg)[0]))
+    log(f"  K3's (a, b) route on its standalone path (the unfused RG-LRU "
+        f"of recurrentgemma-2b, W={W}: a 256-token prefill and "
+        f"{SCAN_PATH_STEPS} decode steps of {SLOTS} slots): launches "
+        f"{json.dumps(got)}; against the gated route max_abs_err {e:.3g}")
+    if not e < GATED_RTOL * max(1.0, float(h.abs().max())):
+        raise AssertionError(f"unfused and gated RG-LRU differ by {e}")
+    return got["rglru_scan"]
 
 
 def int8_library():
@@ -829,6 +1005,25 @@ def phase_int8():
                 f"{e:.3g}")
             if not e < 10 * ATOL[name]:
                 raise AssertionError(f"int8_matmul {name} {(M, K, N)}: {e}")
+    # the bf16 routes at reduced widths: split-K decode and one-range
+    # prefill, bf16 and f32 outputs, two launches bit-equal
+    n_sm = k6.sm_count(torch.cuda.current_device())
+    for M, K, N in INT8_ROUTES:
+        x = torch.randn((M, K), generator=g, device=DEV).to(torch.bfloat16)
+        wq, sc = quantized(K, N)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            out = k6.int8_matmul(x, wq, sc, out_dtype=out_dtype)
+            again = k6.int8_matmul(x, wq, sc, out_dtype=out_dtype)
+            e = err(out, k6.int8_matmul_torch(x, wq, sc,
+                                              out_dtype=out_dtype))
+            n_split, chunk = k6.plan_splitk(M, N, K, n_sm)
+            log(f"  int8_matmul bfloat16 ({M},{K})x({K},{N}) -> "
+                f"{str(out_dtype).replace('torch.', '')}: n_split "
+                f"{n_split} x {chunk}; max_abs_err {e:.3g}; two launches "
+                f"bit-equal {torch.equal(out, again)}")
+            if not e < 10 * ATOL["bfloat16"] or not torch.equal(out, again):
+                raise AssertionError(f"int8_matmul {(M, K, N)} "
+                                     f"{out_dtype}: {e}")
 
     lib_name, lib = int8_library()
     bf16 = torch.bfloat16
@@ -842,8 +1037,21 @@ def phase_int8():
             x = torch.randn((M, K), generator=g, device=DEV).to(bf16)
             out = k6.int8_matmul(x, wq, sc)
             e = err(out, k6.int8_matmul_torch(x, wq, sc))
-            if not e < 10 * ATOL["bfloat16"]:
-                raise AssertionError(f"int8_matmul {part} M={M}: {e}")
+            # at K = 25600 the outputs pass 32, where one bf16 ulp is 0.25:
+            # two fp32 sums in different orders round to neighbouring bf16
+            # values there. So the sums are held at the tolerance in fp32,
+            # and the bf16 output must be the fp32 output rounded, exactly
+            out32 = k6.int8_matmul(x, wq, sc, out_dtype=torch.float32)
+            e32 = err(out32, k6.int8_matmul_torch(x, wq, sc,
+                                                  out_dtype=torch.float32))
+            exact = torch.equal(out, out32.to(bf16))
+            log(f"  int8_matmul qwen3-32b {part} M={M}: bf16 output "
+                f"max_abs_err {e:.3g} (largest |out| "
+                f"{float(out32.abs().max()):.3g}); fp32 output max_abs_err "
+                f"{e32:.3g}; bf16 output the fp32 output rounded: {exact}")
+            if not e32 < 10 * ATOL["bfloat16"] or not exact:
+                raise AssertionError(f"int8_matmul {part} M={M}: {e32}, "
+                                     f"rounded exactly: {exact}")
             r = timed_row(
                 f"x ({M},{K}) bf16 @ w_q ({K},{N}) int8 * scale ({N},) f32",
                 e, functools.partial(k6.int8_matmul, x, wq, sc),
@@ -852,13 +1060,15 @@ def phase_int8():
                 nbytes(x, wq, sc, out), 2 * M * N * K, PEAK_BF16_FLOPS,
                 plain_reps=5)
             r["library"] = lib_name
+            r["n_split"], r["k_chunk"] = k6.plan_splitk(M, N, K, n_sm)
             rows[f"qwen3-32b {part} M={M}"] = r
             log(f"  int8_matmul qwen3-32b {part} M={M} [{r['shape']}]: "
                 f"device ms kernel {r['ms']:.5f}, plain "
                 f"{r['plain_ms']:.5f}, library ({lib_name}) "
                 f"{r['library_ms']:.5f}, bound {r['bound_ms']:.5f} "
                 f"({r['bound_by']}, bf16 tensor core peak); eager call "
-                f"{r['eager_ms']:.5f} ms; max_abs_err {e:.3g}")
+                f"{r['eager_ms']:.5f} ms; max_abs_err {e:.3g}; n_split "
+                f"{r['n_split']} x {r['k_chunk']}")
 
     # the standalone path: an int8 SwiGLU at decode and prefill, counted
     xs = {M: torch.randn((M, INT8_MLP["gate/up"][0]), generator=g,
@@ -931,11 +1141,24 @@ def parity(arch, num_layers, prompt_len, max_len):
 
 
 def phase_parity():
+    from repro_torch import configs
+
     out = {"qwen2.5-3b": parity("qwen2.5-3b", 2, 16, 32)}
     # 5 layers = one (rglru, rglru, local) cycle + the (rglru, rglru) tail;
     # 2100 > window 2048: banded on the CPU, windowed in K1, and the ring
-    # of 2048 slots wraps in the prefill and again in the decode steps
+    # of 2048 slots wraps in the prefill and again in the decode steps. Its
+    # RG-LRU layers take K3's gated route, once a layer per call
+    reset_counts()
     out["recurrentgemma-2b"] = parity("recurrentgemma-2b", 5, 2100, 2200)
+    got = read_counts(("rglru_gated", "rglru_scan"))
+    n_rglru = configs.get_config("recurrentgemma-2b").replace(
+        num_layers=5).layer_kinds().count("rglru")
+    want = {"rglru_gated": 4 * n_rglru, "rglru_scan": 0}
+    log(f"  recurrentgemma-2b's card run launched K3 {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"recurrentgemma-2b parity launched K3 {got}, "
+                             f"want {want} (the gated route, one launch a "
+                             "layer per prefill and decode step)")
     out["rwkv6-3b"] = parity("rwkv6-3b", 2, 250, 256)
     out["qwen3-32b"] = parity("qwen3-32b", 2, 16, 32)
     # 2 x 16 tokens over 128 experts top-8: capacity 8 slots an expert
@@ -1041,7 +1264,8 @@ def step_breakdown(MDL, eng, prompt_len=256, n=10):
 
 def device_profile(MDL, eng, prompt_len=256, n=5):
     """Device time by kernel name (torch.profiler) over ``n`` decode steps
-    of all slots and ``n`` prefills of ``prompt_len`` tokens, per call."""
+    of all slots and ``n`` prefills of ``prompt_len`` tokens, per call, and
+    the device kernels and copies a call launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1065,24 +1289,48 @@ def device_profile(MDL, eng, prompt_len=256, n=5):
                 for _ in range(n):
                     fn()
                 torch.cuda.synchronize()
-            kern = [(e.key, e.self_device_time_total / 1e3 / n)
+            kern = [(e.key, e.self_device_time_total / 1e3 / n, e.count / n)
                     for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA
                     and e.self_device_time_total > 0]
             kern.sort(key=lambda kv: -kv[1])
-            total = sum(t for _, t in kern)
-            ours = sum(t for k, t in kern if any(
+            total = sum(t for _, t, _c in kern)
+            ours = sum(t for k, t, _c in kern if any(
                 tag in k for tag in PORT_KERNEL_NAMES))
             out[name] = {"device_ms": total, "port_kernels_ms": ours,
+                         "device_kernels": sum(c for _, _t, c in kern),
                          "n_kernel_names": len(kern),
-                         "top": [(k[:60], t) for k, t in kern[:6]]}
+                         "top": [(k[:60], t) for k, t, _c in kern[:6]]}
     return out
+
+
+@contextlib.contextmanager
+def unfused_rglru():
+    """The model's RG-LRU scan as it ran before K3's gated route: the
+    elementwise tail of ``_gates`` in PyTorch, then the (a, b) route. For
+    a same-run "before" of the serving calls; never on a counted path."""
+    from repro_torch.models import rglru as R
+
+    rg = ops_modules()["rglru_scan"]
+    gated = R.rglru_scan
+
+    def scan(params, cfg, xb, h0=None, *, h_last=None):
+        if h0 is None:
+            h0 = torch.zeros((xb.shape[0], xb.shape[2]), device=xb.device)
+        return rglru_unfused(rg, *R._gate_products(params, cfg, xb), xb,
+                             params["log_lambda"], h0, h_last=h_last)
+
+    R.rglru_scan = scan
+    try:
+        yield
+    finally:
+        R.rglru_scan = gated
 
 
 def expected_launches(cfg, n_prefills, n_steps):
     """One launch per layer of each kind per prefill and per decode step;
-    K4's prefills take its chunked route, its decode steps the
-    recurrence."""
+    K3 takes its gated route only, K4's prefills its chunked route and its
+    decode steps the recurrence."""
     from repro_torch.models.model import ATTN_KINDS
 
     kinds = cfg.layer_kinds()
@@ -1090,7 +1338,8 @@ def expected_launches(cfg, n_prefills, n_steps):
     rwkv = kinds.count("rwkv")
     return {"flash_attention": attn * n_prefills,
             "decode_attention": attn * n_steps,
-            "rglru_scan": kinds.count("rglru") * (n_prefills + n_steps),
+            "rglru_gated": kinds.count("rglru") * (n_prefills + n_steps),
+            "rglru_scan": 0,
             "rwkv6_chunked": rwkv * n_prefills,
             "rwkv6_scan": rwkv * n_steps}
 
@@ -1147,7 +1396,7 @@ def phase_serve(arch):
             steps0 = eng.steps
             reset_counts()
             reqs, t0 = serve(workers[sid], variant, batch, tag=tag)
-            got = read_counts(SERVING)
+            got = read_counts(SERVING + ("rglru_scan",))
             steps = eng.steps - steps0
             want = expected_launches(eng.cfg, len(reqs), steps)
             log(f"  {tag}: served {len(reqs)} requests on {sid} {variant}; "
@@ -1185,8 +1434,26 @@ def phase_serve(arch):
         for call, p in res["A_profile"].items():
             log(f"  A {full.name} {call} by kernel (torch.profiler, ms per "
                 f"call): total {p['device_ms']:.3f}, the port's kernels "
-                f"{p['port_kernels_ms']:.3f}, {p['n_kernel_names']} kernel "
-                f"names; top {json.dumps(p['top'])}")
+                f"{p['port_kernels_ms']:.3f}; device kernels a call "
+                f"{p['device_kernels']:.1f} ({p['n_kernel_names']} kernel "
+                f"names); top {json.dumps(p['top'])}")
+        if "rglru" in fc.layer_kinds():
+            # the same calls with the RG-LRU scan unfused, as before K3's
+            # gated route, on this card in this run
+            with unfused_rglru():
+                res["A_steps_unfused"] = step_breakdown(MDL, eng_a)
+                res["A_profile_unfused"] = device_profile(MDL, eng_a)
+            for call, p in res["A_profile_unfused"].items():
+                st, su = res["A_steps"], res["A_steps_unfused"]
+                log(f"  A {full.name} {call}, the RG-LRU scan unfused: "
+                    f"device kernels a call {p['device_kernels']:.1f} "
+                    f"(gated: {res['A_profile'][call]['device_kernels']:.1f})"
+                    f", profiled device ms {p['device_ms']:.3f} (gated: "
+                    f"{res['A_profile'][call]['device_ms']:.3f}), graph "
+                    f"device ms {su[f'{call}_device_ms']:.3f} (gated: "
+                    f"{st[f'{call}_device_ms']:.3f}), host wall "
+                    f"{su[f'{call}_wall_ms']:.3f} ms (gated: "
+                    f"{st[f'{call}_wall_ms']:.3f})")
 
         t_kill = time.monotonic()
         workers["A"].kill()
@@ -1854,18 +2121,19 @@ def ptxas_spills(lines):
     return out
 
 
-# the functions that must not spill: K1/K2, K4's chunked kernels, K5's
-# round kernel
-NO_SPILL = {"flash_attention": "", "decode_attention": "",
-            "rwkv6_scan": "wkv_chunk", "planner_argmax": "plan_round"}
+# the functions that must not spill, by name fragment: K1-K3, K4's chunked
+# kernels, K5's round kernel, K6's tensor-core kernel and its combine
+NO_SPILL = {"flash_attention": ("",), "decode_attention": ("",),
+            "rglru_scan": ("",), "rwkv6_scan": ("wkv_chunk",),
+            "planner_argmax": ("plan_round",),
+            "int8_matmul": ("int8_mm_tc", "int8_combine")}
 
 
 def phase_build():
     """Build every kernel (one nvcc each, all at once), print each
-    kernel's ptxas registers and spills, fail on any spill in K1/K2, K4's
-    chunked kernels or K5's round kernel, and print the HMMA count of
-    each of K1's bf16 (tensor-core) instantiations, failing if one has
-    none, and the HMMA count of K4's chunked kernels."""
+    kernel's ptxas registers and spills, fail on any spill in ``NO_SPILL``,
+    and print the HMMA count of each bf16 (tensor-core) instantiation of
+    K1, K4's chunked kernels and K6, failing if one has none."""
     from repro_torch.kernels import _build
 
     packages = sorted({v[0] for v in KERNELS.values()})
@@ -1881,7 +2149,7 @@ def phase_build():
         log(f"  ptxas {name}: {'; '.join(regs)} | {'; '.join(spills)}")
         if name in NO_SPILL:
             spilled = {fn: ln for fn, ln in ptxas_spills(lines).items()
-                       if NO_SPILL[name] in fn}
+                       if any(part in fn for part in NO_SPILL[name])}
             if spilled:
                 raise AssertionError(f"ptxas spills in {name}: {spilled}")
     hmma = {f"hd {m.group(1)}": n
@@ -1899,6 +2167,12 @@ def phase_build():
     if len(wkv) != 16 or not all(wkv.values()):
         raise AssertionError(f"K4's chunked kernels lack tensor-core mma: "
                              f"{wkv}")
+    k6 = {fn: n for fn, n in sass_counts("int8_matmul", "HMMA").items()
+          if "int8_mm_tc" in fn}
+    log(f"  HMMA instructions in K6's bf16 instantiations: "
+        f"{json.dumps(sorted(k6.values()))}")
+    if len(k6) != 4 or not all(k6.values()):
+        raise AssertionError(f"K6's bf16 kernels lack tensor-core mma: {k6}")
 
 
 def main() -> int:
@@ -1929,6 +2203,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     t0 = time.monotonic()
     rows = phase_kernels()
+    scan_launches = phase_scan_path()
     rows["int8_matmul"], k6_launches = phase_int8()
     log(f"  phase 2 took {time.monotonic() - t0:.1f} s")
 
@@ -1947,8 +2222,10 @@ def main() -> int:
         st = serves[arch]["A_steps"]
         for name in ("decode_step", "prefill_256"):
             wall, devt = st[f"{name}_wall_ms"], st[f"{name}_device_ms"]
+            n_kern = serves[arch]["A_profile"][name]["device_kernels"]
             log(f"  {name} on {arch}:full: host wall {wall:.3f} ms, device "
-                f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}")
+                f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}, "
+                f"device kernels a call {n_kern:.1f}")
         log(f"  phase 4 {arch} took {time.monotonic() - t0:.1f} s")
 
     log("phase 5: the simulator's failover planning on the card (K5)")
@@ -1972,6 +2249,8 @@ def main() -> int:
         r = rows[name][headline]
         if name == "int8_matmul":
             by_path = {INT8_PATH: k6_launches}
+        elif name == "rglru_scan":
+            by_path = {SCAN_PATH: scan_launches}
         elif name == "planner_argmax":
             by_path = {ARGMAX_PATH: argmax_launches}
         else:
@@ -2001,7 +2280,8 @@ def main() -> int:
             "rows": {tag: {k: x[k] for k in ("shape", "ms", "plain_ms",
                                              "library_ms", "bound_ms",
                                              "bound_by", "max_abs_err",
-                                             "cold_ms", "per_app_us")
+                                             "before_ms", "cold_ms",
+                                             "per_app_us", "n_split")
                            if k in x}
                      for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")

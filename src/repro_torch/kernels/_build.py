@@ -11,6 +11,7 @@ stale library is never loaded. Nothing is built at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -96,6 +97,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target(name)))
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The card's number of SMs, read once per device (launch plans are
+    functions of the shapes and this count)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

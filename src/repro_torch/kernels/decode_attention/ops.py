@@ -9,25 +9,28 @@ On the card a call is split-KV: ``plan_split`` cuts the cache into
 fixed chunks from the shapes and the card's SM count alone (never from
 ``lens``, so a decode step needs no host sync), one kernel writes each
 chunk's partial softmax into fp32 workspaces allocated here, and a second
-merges them in fixed order. ``LAUNCHES`` counts wrapper calls, one per
+merges them in fixed order. A small cache is one chunk, and then the one
+kernel writes the output itself. ``LAUNCHES`` counts wrapper calls, one per
 layer per decode step, whatever the number of kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import threading
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 NAME = "decode_attention"
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32                     # one warp per query head of a group
 TILE_KEYS = 32                     # keys per tile of the split kernel
+SPLIT_MIN_TILES = 4                # caches of up to this many tiles run
+                                   # as one chunk: no combine
 DTYPES = _build.DTYPE_CODES
 
 # kernel launches since the last reset; read and reset by chip_smoke.py
@@ -35,7 +38,6 @@ LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-
 
 
 def _lib():
@@ -50,20 +52,19 @@ def _lib():
 def plan_split(B, KVH, Smax, n_sm):
     """(n_split, chunk) of the split-KV launch: chunk s covers the key
     positions [s * chunk, (s + 1) * chunk), chunk a multiple of
-    ``TILE_KEYS``, every chunk non-empty. Aims at one to two waves of
-    blocks, (n_split, KVH, B) >= min(n_sm, B * KVH * tiles) and below
-    2 * n_sm + B * KVH; depends on these four numbers only."""
+    ``TILE_KEYS``, every chunk non-empty. A cache of at most
+    ``SPLIT_MIN_TILES`` tiles is one chunk: a block walks it in about the
+    time of the combine's launch, so a split cannot pay for it. Above
+    that, aims at one to two waves of blocks, (n_split, KVH, B) >=
+    min(n_sm, B * KVH * tiles) and below 2 * n_sm + B * KVH; depends on
+    these four numbers only."""
     tiles = -(-Smax // TILE_KEYS)
+    if tiles <= SPLIT_MIN_TILES:
+        return 1, tiles * TILE_KEYS
     want = -(-2 * n_sm // (B * KVH))
     per = -(-tiles // min(tiles, want))   # tiles a chunk
     chunk = per * TILE_KEYS
     return -(-Smax // chunk), chunk
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index):
-    """The card's number of SMs, read once per device."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_cache, v_cache, lens, window):

@@ -8,6 +8,13 @@ default). A CUDA tensor launches the kernel on the current stream (no
 synchronize); a CPU tensor runs ``int8_matmul_torch``. There is no
 fallback from one to the other.
 
+On the card a bf16 x runs on the tensor cores; where the output tiles
+leave the card idle (always at decode, M <= 16) ``plan_splitk`` cuts K
+into ranges from the shapes and the card's SM count alone, one kernel
+writes each range's fp32 partial sums into a workspace allocated here,
+and a second adds them in fixed order.
+``LAUNCHES`` counts wrapper calls, whatever the number of kernels.
+
 As in the JAX package, no model or serving path calls it: the ladder's
 ``:int8`` rungs only price their bytes (``ModelConfig.quant_bits``). It
 is a standalone kernel with its own tests.
@@ -21,10 +28,19 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
 NAME = "int8_matmul"
 DTYPES = _build.DTYPE_CODES
+# the bf16 kernel's tiles (csrc TcDecode, TcPrefill): (rows, columns) a
+# block at decode (M <= DECODE_M) and above
+DECODE_M = 16
+DECODE_TILE = (16, 128)
+PREFILL_TILE = (64, 128)
+TILE_K = 32           # K a stage; a split's K range is a multiple
+SPLIT_WAVES = 4       # blocks per SM a split aims at
+MIN_SPLIT_STEPS = 8   # K stages a split walks at least
 
 # kernel launches since the last reset; read and reset by chip_smoke.py
 LAUNCHES = 0
@@ -38,8 +54,24 @@ def _lib():
     fn = lib.faillite_int8_matmul
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = [_P] * 4 + [_I] * 5 + [_L, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 7 + [_L, _P]
     return fn
+
+
+def plan_splitk(M, N, K, n_sm):
+    """(n_split, k_chunk) of a bf16 launch: split s covers the K range
+    [s * k_chunk, (s + 1) * k_chunk), k_chunk a multiple of ``TILE_K``,
+    every range non-empty. Where the output tiles alone leave the card
+    idle (decode's single row tile; a narrow N at prefill), K is split
+    until the blocks reach ``SPLIT_WAVES`` per SM, each range at least
+    ``MIN_SPLIT_STEPS`` stages long; depends on these four numbers
+    only."""
+    bm, bn = DECODE_TILE if M <= DECODE_M else PREFILL_TILE
+    steps = -(-K // TILE_K)
+    tiles = -(-M // bm) * -(-N // bn)
+    n = max(1, min(-(-SPLIT_WAVES * n_sm // tiles), steps // MIN_SPLIT_STEPS))
+    chunk = -(-steps // n) * TILE_K
+    return -(-K // chunk), chunk
 
 
 def quantize_int8(w, axis=0):
@@ -97,11 +129,18 @@ def int8_matmul(x, w_q, scale, *, out_dtype=None):
     M, K = x.shape
     N = w_q.shape[1]
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    fn = _lib()
+    n_split, chunk = 1, -(-K // TILE_K) * TILE_K
+    if x.dtype == torch.bfloat16:
+        n_split, chunk = plan_splitk(M, N, K, sm_count(x.device.index))
+    ws = None
+    if n_split > 1:
+        ws = torch.empty((n_split, M, N), dtype=torch.float32,
+                         device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-             DTYPES[x.dtype], DTYPES[out_dtype], M, N, K, x.stride(0),
-             stream)
+    err = _lib()(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(),
+                 DTYPES[x.dtype], DTYPES[out_dtype], M, N, K, n_split, chunk,
+                 x.stride(0), stream)
     _build.check(err, NAME)
     with _count_lock:
         LAUNCHES += 1

@@ -1,8 +1,20 @@
-"""Wrapper of the RG-LRU scan kernel (``csrc/rglru_scan.cu``).
+"""Wrappers of the RG-LRU scan kernel (K3, ``csrc/rglru_scan.cu``).
 
-Takes the model's (B, S, W) fp32 gate products. A CUDA tensor launches the
-kernel on the current stream (no synchronize); a CPU tensor runs the plain
-version in ``ref.py``. There is no fallback from one to the other.
+Two routes:
+
+- ``rglru_scan(a, b, h0)`` takes the (B, S, W) fp32 decays and inputs,
+  the TPU kernel's contract;
+- ``rglru_gated_scan(ga, gx, xb, log_lambda, h0)`` takes the model's
+  values before the elementwise tail of its gates (the block-diagonal
+  gate products and the post-conv input, in the model dtype) and computes
+  a and b inside the kernel, so they never reach memory. The model's
+  prefill and decode step call this one.
+
+A CUDA tensor launches the kernel on the current stream (no synchronize):
+a prefill (S > 1) the chunked scan, a decode step (S = 1) one thread per
+(row, channel). A CPU tensor runs the plain version in ``ref.py``. There
+is no fallback from one to the other. ``LAUNCHES`` counts the calls that
+launched, either route; ``GATED_LAUNCHES`` those of the gated route.
 """
 
 from __future__ import annotations
@@ -13,12 +25,16 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_ref,
+                                                rglru_scan_ref)
 
 NAME = "rglru_scan"
+DTYPES = _build.DTYPE_CODES
 
-# kernel launches since the last reset; read and reset by chip_smoke.py
+# wrapper calls that launched, either route, and those of the gated
+# route, since the last reset; read and reset by chip_smoke.py
 LAUNCHES = 0
+GATED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -33,21 +49,54 @@ def _lib():
     return fn
 
 
-def _check(a, b, h0, h_last):
-    if a.dim() != 3 or b.shape != a.shape:
-        raise ValueError(f"want a, b (B,S,W) of one shape; got "
-                         f"{tuple(a.shape)}, {tuple(b.shape)}")
-    B, _, W = a.shape
+def _lib_gated():
+    lib = _build.load(NAME)
+    fn = lib.faillite_rglru_gated_scan
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
+    return fn
+
+
+def _check_state(x, h0, h_last):
+    B, _, W = x.shape
     for name, t in (("h0", h0), ("h_last", h_last)):
         if t is not None and tuple(t.shape) != (B, W):
             raise ValueError(f"{name} must be ({B},{W}), got "
                              f"{tuple(t.shape)}")
-    ts = [t for t in (a, b, h0, h_last) if t is not None]
-    if any(t.device != a.device for t in ts):
+    for t in (h0, h_last):
+        if t is not None and t.device != x.device:
+            raise ValueError("inputs, h0 and h_last must be on one device")
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"want float32 h0 and h_last; got {t.dtype}")
+
+
+def _check(a, b, h0, h_last):
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"want a, b (B,S,W) of one shape; got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    if b.device != a.device:
         raise ValueError("a, b, h0 and h_last must be on one device")
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"want float32 tensors; got "
-                        f"{[t.dtype for t in ts]}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise TypeError(f"want float32 tensors; got {a.dtype}, {b.dtype}")
+    _check_state(a, h0, h_last)
+
+
+def _state_out(x, h0, h_last):
+    """h_last to write on the card, after checking the state strides."""
+    B, _, W = x.shape
+    if h_last is None:
+        h_last = torch.empty((B, W), dtype=torch.float32, device=x.device)
+    if h0.stride(-1) != 1 or h_last.stride(-1) != 1:
+        raise ValueError("h0 and h_last need a unit stride on the width")
+    return h_last
+
+
+def _cpu_result(h, last, h_last):
+    if h_last is None:
+        return h, last
+    h_last.copy_(last)
+    return h, h_last
 
 
 def rglru_scan(a, b, h0, *, h_last=None):
@@ -59,27 +108,69 @@ def rglru_scan(a, b, h0, *, h_last=None):
     global LAUNCHES
     _check(a, b, h0, h_last)
     if a.device.type == "cpu":
-        h, last = rglru_scan_ref(a, b, h0)
-        if h_last is None:
-            return h, last
-        h_last.copy_(last)
-        return h, h_last
+        return _cpu_result(*rglru_scan_ref(a, b, h0), h_last)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     B, S, W = a.shape
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous (B,S,W)")
-    if h_last is None:
-        h_last = torch.empty((B, W), dtype=torch.float32, device=a.device)
-    if h0.stride(-1) != 1 or h_last.stride(-1) != 1:
-        raise ValueError("h0 and h_last need a unit stride on the width")
+    h_last = _state_out(a, h0, h_last)
     h = torch.empty_like(a)
-    fn = _lib()
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = fn(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
-             h_last.data_ptr(), B, S, W, a.stride(0), a.stride(1),
-             h0.stride(0), h_last.stride(0), stream)
+    err = _lib()(a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(),
+                 h_last.data_ptr(), B, S, W, a.stride(0), a.stride(1),
+                 h0.stride(0), h_last.stride(0), stream)
     _build.check(err, NAME)
     with _count_lock:
         LAUNCHES += 1
+    return h, h_last
+
+
+def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
+    """ga, gx, xb: (B,S,W) float32 or bfloat16, one dtype; log_lambda (W,)
+    float32; h0: (B,W) float32 -> (h (B,S,W) fp32, h_last (B,W) fp32).
+
+    h_t = a_t h_{t-1} + b_t with (a, b) = ``rglru_gates_ref(ga, gx, xb,
+    log_lambda)``. When ``h_last`` is given, the last state is written into
+    it (it may be ``h0`` itself) and returned.
+    """
+    global LAUNCHES, GATED_LAUNCHES
+    if xb.dim() != 3 or not (ga.shape == gx.shape == xb.shape):
+        raise ValueError(f"want ga, gx, xb (B,S,W) of one shape; got "
+                         f"{[tuple(t.shape) for t in (ga, gx, xb)]}")
+    W = xb.shape[2]
+    if tuple(log_lambda.shape) != (W,):
+        raise ValueError(f"log_lambda must be ({W},), got "
+                         f"{tuple(log_lambda.shape)}")
+    if any(t.device != xb.device for t in (ga, gx, log_lambda)):
+        raise ValueError("ga, gx, xb, log_lambda, h0 and h_last must be on "
+                         "one device")
+    if xb.dtype not in DTYPES or not (ga.dtype == gx.dtype == xb.dtype):
+        raise TypeError(f"want float32 or bfloat16 ga, gx, xb of one dtype; "
+                        f"got {ga.dtype}, {gx.dtype}, {xb.dtype}")
+    if log_lambda.dtype != torch.float32:
+        raise TypeError(f"want float32 log_lambda; got {log_lambda.dtype}")
+    _check_state(xb, h0, h_last)
+    if xb.device.type == "cpu":
+        return _cpu_result(*rglru_gated_scan_ref(ga, gx, xb, log_lambda, h0),
+                           h_last)
+    if xb.device.type != "cuda":
+        raise ValueError(f"unsupported device {xb.device}")
+    B, S, _ = xb.shape
+    if any(t.stride(-1) != 1 for t in (ga, gx, xb)) \
+            or not log_lambda.is_contiguous():
+        raise ValueError("ga, gx and xb need a unit stride on the width, "
+                         "log_lambda must be contiguous")
+    h_last = _state_out(xb, h0, h_last)
+    h = torch.empty((B, S, W), dtype=torch.float32, device=xb.device)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    err = _lib_gated()(
+        ga.data_ptr(), gx.data_ptr(), xb.data_ptr(), log_lambda.data_ptr(),
+        h0.data_ptr(), h.data_ptr(), h_last.data_ptr(), DTYPES[xb.dtype],
+        B, S, W, *ga.stride()[:2], *gx.stride()[:2], *xb.stride()[:2],
+        h0.stride(0), h_last.stride(0), stream)
+    _build.check(err, NAME)
+    with _count_lock:
+        LAUNCHES += 1
+        GATED_LAUNCHES += 1
     return h, h_last

@@ -1,10 +1,21 @@
-"""Plain PyTorch version of the RG-LRU scan kernel (the port of
-``repro/kernels/rglru_scan/ref.py``): a sequential scan over the
-sequence, which gives the associative scan's numbers to fp32 rounding."""
+"""Plain PyTorch versions of the RG-LRU scan kernel (the port of
+``repro/kernels/rglru_scan/ref.py``) and of its gated route.
+
+``rglru_scan_ref`` is a sequential scan over the sequence, which gives the
+associative scan's numbers to fp32 rounding. ``rglru_gates_ref`` is the
+elementwise tail of the model's gates (``models/rglru.py`` ``_gates``, the
+one copy of that arithmetic), and ``rglru_gated_scan_ref`` the two in a
+row: what the gated route computes. ``rglru_scan_chunked_ref`` is the CUDA
+kernel's chunked algorithm, for the tests.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+RGLRU_C = 8.0
+CHUNKS = 32          # chunks of the sequence a block (csrc: NC)
 
 
 def rglru_scan_ref(a, b, h0):
@@ -19,3 +30,70 @@ def rglru_scan_ref(a, b, h0):
         hv = a[:, t] * hv + b[:, t]
         h[:, t] = hv
     return h, hv
+
+
+def rglru_gates_ref(ga, gx, xb, log_lambda):
+    """The decays and inputs of the scan from the block-diagonal gate
+    products ga, gx and the post-conv input xb (B,S,W), log_lambda (W,).
+
+        a = exp(-c softplus(Lambda) sigmoid(ga))
+        b = sqrt(1 - a^2) sigmoid(gx) xb,   1 - a^2 = 1 - exp(2 log a)
+
+    Returns (a, b) (B,S,W) fp32.
+    """
+    r = torch.sigmoid(ga.float())
+    i = torch.sigmoid(gx.float())
+    log_a = -RGLRU_C * F.softplus(log_lambda.float()) * r
+    a = torch.exp(log_a)
+    # sqrt(1 - a^2) computed in log space for stability
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    b = mult * i * xb.float()
+    return a, b
+
+
+def rglru_gated_scan_ref(ga, gx, xb, log_lambda, h0):
+    """The gated route: the gates, then the scan from h0 (B,W).
+
+    Returns (h (B,S,W) fp32, h_last (B,W) fp32).
+    """
+    return rglru_scan_ref(*rglru_gates_ref(ga, gx, xb, log_lambda), h0)
+
+
+def chunk_len(S):
+    """Steps a chunk of the CUDA kernel's prefill: the sequence in CHUNKS
+    chunks, from S alone."""
+    return -(-S // CHUNKS)
+
+
+def rglru_scan_chunked_ref(a, b, h0, chunk=None):
+    """The CUDA kernel's prefill algorithm in plain PyTorch: chunks of
+    ``chunk`` steps (``chunk_len(S)`` by default) each scanned from zero to
+    (prod a, h_end), the carries combined in chunk order from h0, then each
+    chunk rescanned from its carry-in. Steps past S are the identity.
+
+    Returns (h (B,S,W) fp32, h_last (B,W) fp32).
+    """
+    a, b, h0 = a.float(), b.float(), h0.float()
+    B, S, W = a.shape
+    L = chunk or chunk_len(S)
+    n = -(-S // L)
+    pad = n * L - S
+    ap = torch.cat([a, a.new_ones(B, pad, W)], 1).reshape(B, n, L, W)
+    bp = torch.cat([b, b.new_zeros(B, pad, W)], 1).reshape(B, n, L, W)
+    P = a.new_ones(B, n, W)
+    H = a.new_zeros(B, n, W)
+    for u in range(L):                       # pass 1, every chunk at once
+        H = ap[:, :, u] * H + bp[:, :, u]
+        P = P * ap[:, :, u]
+    carry = torch.empty_like(H)
+    c = h0
+    for k in range(n):                       # the carries, in chunk order
+        carry[:, k] = c
+        c = P[:, k] * c + H[:, k]
+    h = torch.empty_like(ap)
+    hv = carry
+    for u in range(L):                       # pass 2, from the carry-in
+        hv = ap[:, :, u] * hv + bp[:, :, u]
+        h[:, :, u] = hv
+    h = h.reshape(B, n * L, W)[:, :S]
+    return h, h[:, -1].clone()

@@ -4,9 +4,11 @@ Griffin / RecurrentGemma, arXiv:2402.19427).
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
     a_t = exp(-c * softplus(Lambda) * r_t),  r_t, i_t block-diag sigmoid gates
 
-The gates are PyTorch ops in fp32; the scan over the sequence goes through
-``kernels.rglru_scan`` (K3 on a CUDA tensor, its plain sequential version
-on a CPU tensor), for the prefill and the decode step alike. A state
+The two block-diagonal gate products are PyTorch einsums; the elementwise
+tail of the gates and the scan over the sequence go through K3's gated
+route ``kernels.rglru_scan.ops.rglru_gated_scan`` (one kernel on a CUDA
+tensor, a and b never in memory; ``_gates`` followed by the sequential
+scan on a CPU tensor), for the prefill and the decode step alike. A state
 passed in is updated in place (``h`` by the scan itself, ``conv`` by a
 copy) and returned; the JAX functions return a new state instead.
 """
@@ -19,9 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
+from repro_torch.kernels.rglru_scan.ref import RGLRU_C, rglru_gates_ref
 from repro_torch.models.layers import _he
-
-RGLRU_C = 8.0
 
 
 def init_rglru(gen, cfg, device, dtype=None):
@@ -60,16 +61,17 @@ def _block_gate(weight, x, nb):
     return torch.einsum("bsnw,nwv->bsnv", xb, weight).reshape(B, S, w)
 
 
-def _gates(params, cfg, xb):
+def _gate_products(params, cfg, xb):
+    """The block-diagonal gate products (r's and i's pre-activations)."""
     nb = cfg.rnn_blocks
-    r = torch.sigmoid(_block_gate(params["gate_a"], xb, nb).float())
-    i = torch.sigmoid(_block_gate(params["gate_x"], xb, nb).float())
-    log_a = -RGLRU_C * F.softplus(params["log_lambda"].float()) * r
-    a = torch.exp(log_a)
-    # sqrt(1 - a^2) computed in log space for stability
-    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    b = mult * i * xb.float()
-    return a, b
+    return (_block_gate(params["gate_a"], xb, nb),
+            _block_gate(params["gate_x"], xb, nb))
+
+
+def _gates(params, cfg, xb):
+    """The scan's decays a and inputs b (B,S,w) fp32."""
+    return rglru_gates_ref(*_gate_products(params, cfg, xb), xb,
+                           params["log_lambda"])
 
 
 def rglru_scan(params, cfg, xb, h0=None, *, h_last=None):
@@ -78,10 +80,12 @@ def rglru_scan(params, cfg, xb, h0=None, *, h_last=None):
 
     Returns (h (B,S,w) fp32, h_last (B,w) fp32).
     """
-    a, b = _gates(params, cfg, xb)
+    ga, gx = _gate_products(params, cfg, xb)
     if h0 is None:
-        h0 = torch.zeros_like(a[:, 0])
-    return rglru_ops.rglru_scan(a, b, h0, h_last=h_last)
+        h0 = torch.zeros((xb.shape[0], xb.shape[2]), dtype=torch.float32,
+                         device=xb.device)
+    return rglru_ops.rglru_gated_scan(ga, gx, xb, params["log_lambda"], h0,
+                                      h_last=h_last)
 
 
 def causal_conv1d(params, x, tail=None):

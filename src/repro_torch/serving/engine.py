@@ -108,9 +108,12 @@ class InferenceEngine:
             logits, sub = MDL.prefill(self.params, self.cfg, prompt, sub)
             MDL.cache_put_slot(self.cache, slot, sub)
             first = int(torch.argmax(logits[0]))
-        with self._lock:
-            req.tokens.append(first)
-            req.first_token_at = time.monotonic()
+            # the first token lands before the model lock is released: a
+            # decode step in between would see the slot without a token,
+            # feed it token 0 and advance its fresh state
+            with self._lock:
+                req.tokens.append(first)
+                req.first_token_at = time.monotonic()
         return True
 
     # -- decode ---------------------------------------------------------------

@@ -7,12 +7,17 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
 Tolerances: K1/K2 f32 2e-5, bf16 2e-2 and K3 1e-5, K4 5e-4 (those of
 tests/test_kernels.py), both of its routes (the chunked prefill and the
-recurrent decode step); K4 in bf16 2e-2; fp32 model logits 1e-3; K6
-(the int8 matmul) 10x those, as tests/test_kernels.py:117. K5 (the
+recurrent decode step); K4 in bf16 2e-2; K3's gated route 1e-5 of the
+largest |h| (its scan rounds a chunk's carry relative to the state);
+fp32 model logits 1e-3; K6 (the int8 matmul, f32 scalar and bf16
+tensor-core routes, split-K at decode) 10x those, as
+tests/test_kernels.py:117. K5 (the
 planner's masked argmax and its round kernel) and the torch planner
 backend are exact. The last test runs the live testbed's smoke spec on
 the card.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -28,7 +33,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import \
     flash_attention_ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as rglru_ops  # noqa: E402
-from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref  # noqa: E402
+from repro_torch.kernels.rglru_scan.ref import (  # noqa: E402
+    rglru_gated_scan_ref, rglru_scan_ref)
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref  # noqa: E402
 from repro_torch.models import model as MDL  # noqa: E402
@@ -65,7 +71,10 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
 # the 32-key tile and chunk edges (1, 32, 33) and the whole cache
 DECODE_LENS = ([97, 161, 288, 512], [1, 32, 33, 512])
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256),     # :64-68
-              (1, 256, 2560), (4, 1, 2560)]
+              (1, 256, 2560), (4, 1, 2560),
+              (2, 33, 100), (1, 300, 64), (3, 1, 100),       # ragged W,
+              (1, 2100, 2560)]                               # long prompt
+GATED_RTOL = 1e-5
 WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8),  # :82-86
              (1, 40, 256, 64), (4, 40, 1, 64)]
 
@@ -208,6 +217,74 @@ def test_rglru_kernel_matches_plain_on_cuda(cuda):
         assert _max_err(state, hl_ref) < SCAN_ATOL
 
 
+def _gated_case(r, B, S, W, dt, dev):
+    """ga, gx, xb (B,S,W) in ``dt``, log_lambda as the model draws it (a
+    in [0.9, 0.999] at r = 1), h0 (B,W) fp32, from numpy."""
+    ga, gx, xb = (torch.from_numpy(r.standard_normal((B, S, W)).astype(
+        np.float32)).to(dev).to(dt) for _ in range(3))
+    a_init = r.uniform(0.9, 0.999, W)
+    lam = np.log(np.expm1(-np.log(a_init) / 8.0))
+    h0 = r.standard_normal((B, W))
+    return ga, gx, xb, *(torch.from_numpy(x.astype(np.float32)).to(dev)
+                         for x in (lam, h0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_gated_kernel_matches_plain_on_cuda(cuda, dtype):
+    """K3's gated route (the gates' tail fused into the scan) against its
+    plain version, ``_gates``' arithmetic then the sequential scan, on the
+    sweep, a ragged width, the smoke width 64, S = 1 and a 2100-token
+    prompt; h_last aliasing h0; one launch a call, counted as gated."""
+    r = np.random.default_rng(8)
+    rglru_ops.LAUNCHES = rglru_ops.GATED_LAUNCHES = 0
+    for B, S, W in SCAN_SWEEP + [(2, 8, 64), (2, 1, 64)]:
+        ga, gx, xb, lam, h0 = _gated_case(r, B, S, W, TDT[dtype], cuda)
+        h_ref, hl_ref = rglru_gated_scan_ref(ga, gx, xb, lam, h0)
+        state = h0.clone()
+        h, hl = rglru_ops.rglru_gated_scan(ga, gx, xb, lam, state,
+                                           h_last=state)
+        torch.cuda.synchronize()
+        assert hl is state and h.dtype == torch.float32
+        scale = max(1.0, float(h_ref.abs().max()))
+        assert _max_err(h, h_ref) < GATED_RTOL * scale, (B, S, W)
+        assert _max_err(state, hl_ref) < GATED_RTOL * scale, (B, S, W)
+    n = len(SCAN_SWEEP) + 2
+    assert rglru_ops.LAUNCHES == rglru_ops.GATED_LAUNCHES == n
+
+
+@pytest.mark.cuda
+def test_rglru_and_int8_kernels_deterministic(cuda):
+    """Two launches of K3 (both routes, a chunked prefill and a decode
+    step) and of K6's tensor-core routes (split K at decode and at a
+    narrow prefill, one range at a wide one) on the same inputs give the
+    same bits."""
+    from repro_torch.kernels.int8_matmul import ops as k6
+    r = np.random.default_rng(9)
+    for B, S in ((1, 256), (4, 1), (1, 2100)):
+        ga, gx, xb, lam, h0 = _gated_case(r, B, S, 2560, torch.bfloat16,
+                                          cuda)
+        runs = [rglru_ops.rglru_gated_scan(ga, gx, xb, lam, h0)
+                for _ in range(2)]
+        a = torch.rand(B, S, 2560, device=cuda)
+        b = torch.randn(B, S, 2560, device=cuda)
+        runs += [rglru_ops.rglru_scan(a, b, h0) for _ in range(2)]
+        torch.cuda.synchronize()
+        for x, y in (runs[:2], runs[2:]):
+            assert torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+    g = torch.Generator(device=cuda).manual_seed(9)
+    n_sm = k6.sm_count(torch.cuda.current_device())
+    for M, K, N, split in ((4, 5120, 1024, True), (256, 1024, 2048, True),
+                           (256, 512, 25600, False)):
+        x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+        wq, sc = k6.quantize_int8(torch.randn(K, N, generator=g,
+                                              device=cuda) * 0.05)
+        assert (k6.plan_splitk(M, N, K, n_sm)[0] > 1) == split
+        a, b = (k6.int8_matmul(x, wq, sc) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv_kernel_matches_plain_on_cuda(cuda, dtype):
@@ -257,6 +334,7 @@ def test_model_on_card_matches_cpu(cuda, arch):
             "rwkv": (wkv_ops, wkv_ops)}
     for m in (fa_ops, dec_ops, rglru_ops, wkv_ops):
         m.LAUNCHES = 0
+    rglru_ops.GATED_LAUNCHES = 0
     with torch.inference_mode():
         lc, _ = MDL.prefill(params, cfg, toks[:, :12], cache_c)
         lg, _ = MDL.prefill(params_g, cfg, toks[:, :12].to(cuda), cache_g)
@@ -274,6 +352,8 @@ def test_model_on_card_matches_cpu(cuda, arch):
         want[pre] += 1
         want[dec] += 10
     assert {m: m.LAUNCHES for m in want} == want
+    # the model's RG-LRU layers take K3's gated route only
+    assert rglru_ops.GATED_LAUNCHES == rglru_ops.LAUNCHES
 
 
 @pytest.mark.cuda
@@ -512,20 +592,23 @@ def test_chunked_and_round_kernels_deterministic(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_matmul_matches_plain_on_cuda(cuda, dtype):
     """K6 against its plain version: the sweep of tests/test_kernels.py
-    (ragged M, N, K; an int8 row of 130 bytes), a view of x with a row
-    stride, a w_q whose N is not a multiple of 4, and the decode and
-    prefill M at a qwen3-32b MLP shape."""
+    (ragged M, N, K; an int8 row of 130 bytes), x contiguous and as a view
+    with an unaligned row, a w_q whose N is not a multiple of 4, and the
+    decode (split-K in bf16) and prefill M at reduced widths."""
     from repro_torch.kernels.int8_matmul import ops as k6
     dt = TDT[dtype]
     g = torch.Generator(device=cuda).manual_seed(4)
     k6.LAUNCHES = 0
     n = 0
     for M, K, N in ((100, 300, 200), (64, 128, 64), (33, 65, 130),
-                    (4, 5120, 1030), (256, 512, 2048)):
-        x = torch.randn(M, K + 3, generator=g, device=cuda).to(dt)[:, 3:]
+                    (4, 5120, 1030), (256, 512, 2048), (4, 2048, 130),
+                    (16, 4096, 640), (1, 1000, 256)):
         w = torch.randn(K, N, generator=g, device=cuda) * 0.05
         wq, sc = k6.quantize_int8(w)
-        for out_dtype in (None, torch.float32):
+        for off, out_dtype in itertools.product((3, 0), (None,
+                                                         torch.float32)):
+            x = torch.randn(M, K + off, generator=g, device=cuda).to(dt)[
+                :, off:]
             out = k6.int8_matmul(x, wq, sc, out_dtype=out_dtype)
             ref = k6.int8_matmul_torch(x, wq, sc, out_dtype=out_dtype)
             assert out.dtype == ref.dtype

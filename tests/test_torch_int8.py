@@ -5,8 +5,12 @@ quantizer against the JAX package.
 K6 is held against on the card) against the JAX kernel in interpret
 mode and its jnp oracle, on the sweep of tests/test_kernels.py:102-104,
 within 10x the kernel tolerances (f32 2e-4, bf16 0.2); ``quantize_int8``
-equal to JAX's bit for bit, codes and scales.
+equal to JAX's bit for bit, codes and scales. The CUDA kernel's split-K
+algorithm (``int8_matmul_splitk_ref``) against the same, at the plans
+``plan_splitk`` gives; ``plan_splitk`` held to its contract.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -20,6 +24,8 @@ from repro.kernels.int8_matmul.int8_matmul import \
 from repro.kernels.int8_matmul.ops import int8_matmul as jax_int8  # noqa: E402
 from repro.kernels.int8_matmul.ref import int8_matmul_ref  # noqa: E402
 from repro_torch.kernels.int8_matmul import ops as k6  # noqa: E402
+from repro_torch.kernels.int8_matmul.ref import \
+    int8_matmul_splitk_ref  # noqa: E402
 
 ATOL10 = {"float32": 2e-4, "bfloat16": 0.2}
 SWEEP = [(100, 300, 200), (64, 128, 64), (33, 65, 130)]
@@ -105,3 +111,59 @@ def test_wrapper_checks_its_inputs():
         k6.int8_matmul(x.double(), wq, sc)
     with pytest.raises(TypeError):
         k6.int8_matmul(x, wq, sc.double())
+
+
+def test_plan_splitk_contract():
+    assert list(inspect.signature(k6.plan_splitk).parameters) == [
+        "M", "N", "K", "n_sm"]
+    tile = k6.TILE_K
+    for n_sm in (1, 8, 66, 132):
+        for M in (1, 4, 16, 17, 256):
+            for N in (8, 130, 1024, 5120, 25600):
+                for K in (1, 31, 65, 300, 5120, 25600):
+                    n, chunk = k6.plan_splitk(M, N, K, n_sm)
+                    assert (n, chunk) == k6.plan_splitk(M, N, K, n_sm)
+                    assert chunk >= 1 and chunk % tile == 0
+                    assert n * chunk >= K and (n - 1) * chunk < K
+                    bm, bn = (k6.DECODE_TILE if M <= k6.DECODE_M
+                              else k6.PREFILL_TILE)
+                    tiles = -(-M // bm) * -(-N // bn)
+                    if tiles >= k6.SPLIT_WAVES * n_sm:
+                        assert n == 1        # the tiles fill the card
+                    if n == 1:
+                        continue
+                    # each range at least MIN_SPLIT_STEPS stages long, and
+                    # no more blocks than the aim needs
+                    assert chunk // tile >= k6.MIN_SPLIT_STEPS
+                    assert tiles * (n - 1) < k6.SPLIT_WAVES * n_sm
+                    assert n <= -(-K // tile)
+
+
+@pytest.mark.parametrize("M,N,K,want", [
+    (4, 25600, 5120, (3, 1728)),     # qwen3-32b gate/up, decode: 600
+    (4, 5120, 25600, (14, 1856)),    # down: 560 blocks
+    (256, 25600, 5120, (1, 5120)),   # prefill: 800 tiles, one range
+    (256, 5120, 25600, (4, 6400)),   # 160 tiles: 640 blocks
+    (33, 130, 65, (1, 96)),          # the sweep
+])
+def test_plan_splitk_main_path(M, N, K, want):
+    assert k6.plan_splitk(M, N, K, 132) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N", SWEEP + [(4, 5120, 1024), (4, 2048, 130),
+                                           (1, 1000, 256), (16, 4096, 640)])
+def test_splitk_emulation_matches_jax_kernel(dtype, M, K, N):
+    (xj, wqj, scj), (xt, wqt, sct) = _inputs(M, K, N, dtype, seed=7)
+    n, chunk = k6.plan_splitk(M, N, K, 132)
+    for n_split, k_chunk in {(n, chunk), (1, -(-K // 32) * 32)}:
+        emu = int8_matmul_splitk_ref(xt, wqt, sct, n_split, k_chunk)
+        assert emu.dtype == TDT[dtype]
+        assert _err(int8_matmul_ref(xj, wqj, scj), emu) < ATOL10[dtype]
+        assert float((emu.float() - k6.int8_matmul_torch(
+            xt, wqt, sct).float()).abs().max()) < ATOL10[dtype]
+    if M * K * N <= 4 * 2048 * 130:
+        kern = jax_int8(xj, wqj, scj, block_m=32, block_n=64, block_k=128,
+                        interpret=True)
+        assert _err(kern, int8_matmul_splitk_ref(xt, wqt, sct, n, chunk)) \
+            < ATOL10[dtype]

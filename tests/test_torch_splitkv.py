@@ -11,8 +11,9 @@ boundary +- 1, a window whose start falls inside a chunk, chunks with no
 valid key, GQA groups of 1 and 32. Tolerances are those of
 tests/test_kernels.py: f32 2e-5, bf16 2e-2. ``plan_split`` is held to its
 contract: it depends on (B, KVH, Smax, n_sm) only and gives chunks of
-whole 32-key tiles that cover the cache, none empty, at one to two waves
-of blocks where Smax allows. K1's bf16 path rounds P to bf16 before the
+whole 32-key tiles that cover the cache, none empty; a cache of at most
+``SPLIT_MIN_TILES`` tiles is one chunk (no combine launch), a larger one
+is cut into one to two waves of blocks where Smax allows. K1's bf16 path rounds P to bf16 before the
 PV product; an emulation of that rounding stays within the bf16
 tolerance of the plain version.
 """
@@ -164,7 +165,8 @@ def test_plan_split_contract():
     for n_sm in (1, 8, 66, 132):
         for B in (1, 2, 4, 16):
             for KVH in (1, 2, 8):
-                for Smax in (1, 31, 32, 96, 100, 512, 700, 4096):
+                for Smax in (1, 31, 32, 96, 100, 128, 129, 160, 512, 700,
+                             4096):
                     n_split, chunk = dec_ops.plan_split(B, KVH, Smax, n_sm)
                     assert (n_split, chunk) == dec_ops.plan_split(
                         B, KVH, Smax, n_sm)
@@ -173,6 +175,10 @@ def test_plan_split_contract():
                     assert (n_split - 1) * chunk < Smax   # none empty
                     blocks = B * KVH * n_split
                     tiles = -(-Smax // tile)
+                    if tiles <= dec_ops.SPLIT_MIN_TILES:
+                        # the split cannot pay for its second launch
+                        assert (n_split, chunk) == (1, tiles * tile)
+                        continue
                     assert blocks >= min(n_sm, B * KVH * tiles)
                     assert blocks < 2 * n_sm + B * KVH
 
@@ -181,7 +187,11 @@ def test_plan_split_contract():
     (4, 2, 512, (16, 32)),      # qwen2.5-3b :full decode: 128 blocks
     (4, 8, 512, (8, 64)),       # qwen3-32b :full: 256 blocks
     (4, 1, 512, (16, 32)),      # recurrentgemma-2b: 64 blocks
-    (2, 2, 96, (3, 32)),        # the testbed's smoke rungs
+    (2, 2, 96, (1, 96)),        # the testbed's smoke rungs: one kernel
+    (2, 1, 8, (1, 32)),         # the smoke local ring (window 8)
+    (2, 2, 128, (1, 128)),      # SPLIT_MIN_TILES tiles: still one chunk
+    (2, 2, 160, (5, 32)),       # one tile more: split
+    (2, 1, 2048, (64, 32)),     # recurrentgemma-2b's local ring at 2100
 ])
 def test_plan_split_main_path(B, KVH, Smax, want):
     assert dec_ops.plan_split(B, KVH, Smax, 132) == want
