@@ -111,7 +111,28 @@ and prints no result):
    layers) whose qwen3-32b primary is killed: that app recovers and its
    clients are served after the kill; it prints the recovered variant,
    detection, client downtime, the measured load seconds, the plan wall
-   and the peak memory allocated.
+   and the peak memory allocated;
+7. the rest of the planning and protection plane, in this process from
+   fixed seeds, K5's round-kernel counters zeroed just before and read
+   just after each planning run: (a) 20 random instances per state dtype
+   with a ``latency_fn`` (about half the (variant, server) pairs over the
+   SLO, some NaN), exclusions and dead servers: the round kernel with the
+   latency mask bit-equal to its plain version on the CPU, and the greedy
+   planner on the card (one masked round launch a plan) equal to numpy's
+   ``plan_greedy(latency_fn=...)``; phase 5's failover round timed with
+   an all-true mask and without one, alternating; (b) phase 5's cell with
+   ``planner="sharded"`` on the torch backend and on numpy with 4
+   coordinators, each equal to phase 5's greedy torch run; (c)
+   tools/bench_mttr.py's five (policy, planner, scheduler) cells at its
+   --smoke shape, (d) tools/bench_shardfail.py's smoke cells (tp_degree 2,
+   degrade / reshard / monolith) and (e) tests/test_autopilot.py:208's
+   chaos run with the autopilot, each through the entry points on the
+   torch and the numpy planner backends with equal fingerprints (printing
+   MTTR, client downtime percentiles and phases; client MTTR and ladder
+   actions; promotions and demotions); the round kernel launched wherever
+   a torch-backend planner planned, the standalone argmax never; (f)
+   benchmarks/ilp_vs_heuristic.py's instances: the ILP's objective at
+   least the greedy planner's on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -124,12 +145,14 @@ import functools
 import gc
 import itertools
 import json
+import math
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -224,7 +247,8 @@ INT8_ROUTES = [(4, 5120, 1024), (4, 2048, 130), (1, 1000, 256),
 INT8_MLP = {"gate/up": (5120, 25600), "down": (25600, 5120)}
 INT8_M = (SLOTS, 256)
 # route -> (kernel package, source, TPU kernel it replaces, headline row
-# of the JSON line); K3, K4 and K5 have two routes each in one source
+# of the JSON line); K3 and K4 have two routes each in one source, K5
+# three (the round kernel without and with a latency mask, the argmax)
 KERNELS = {
     "flash_attention": (
         "flash_attention",
@@ -261,6 +285,11 @@ KERNELS = {
         "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
         "src/repro/kernels/planner_argmax/planner_argmax.py:29",
         "site-outage failover round"),
+    "planner_round_masked": (
+        "planner_argmax",
+        "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
+        "src/repro/kernels/planner_argmax/planner_argmax.py:29",
+        "site-outage failover round, all-true latency mask"),
     "planner_argmax": (
         "planner_argmax",
         "src/repro_torch/kernels/planner_argmax/csrc/planner_argmax.cu",
@@ -277,6 +306,9 @@ SERVING = ("flash_attention", "decode_attention", "rglru_gated",
            "rwkv6_chunked", "rwkv6_scan")
 # routes off the main path, each counted on a standalone path of its own
 STANDALONE = ("rglru_scan", "planner_argmax", "int8_matmul")
+# routes only a planner call with a latency_fn takes (phase 7 (a)); the
+# controller, the simulator and the testbed plan no such request
+LATENCY_ONLY = ("planner_round_masked",)
 INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
 SCAN_PATH = ("standalone (off the main path since the gated route): "
              "recurrentgemma-2b's RG-LRU unfused, the _gates tail then the "
@@ -306,6 +338,7 @@ NO_LIBRARY = {
     "rwkv6_chunked": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
     "planner_round": "none: no single PyTorch call plans a round",
+    "planner_round_masked": "none: no single PyTorch call plans a round",
     "planner_argmax": "none (no single PyTorch call)",
 }
 # K4's extra rows: prompts that are no multiple of the 32-step chunk and
@@ -342,7 +375,7 @@ def reset_counts():
     """Zero every wrapper's launch counters."""
     for m in all_ops().values():
         for name in ("LAUNCHES", "GATED_LAUNCHES", "CHUNKED_LAUNCHES",
-                     "ROUND_LAUNCHES"):
+                     "ROUND_LAUNCHES", "MASKED_LAUNCHES"):
             if hasattr(m, name):
                 setattr(m, name, 0)
 
@@ -350,7 +383,8 @@ def reset_counts():
 def read_counts(routes=None):
     """Launches since the last reset, by route (``KERNELS``): K3's gated
     and (a, b) calls, K4's chunked prefill and recurrent decode calls, K5's
-    round kernel and standalone argmax apart."""
+    round kernel without and with a latency mask and its standalone
+    argmax apart."""
     m = all_ops()
     rg, wkv, k5 = m["rglru_scan"], m["rwkv6_scan"], m["planner_argmax"]
     out = {name: m[name].LAUNCHES for name in
@@ -359,7 +393,8 @@ def read_counts(routes=None):
                rglru_scan=rg.LAUNCHES - rg.GATED_LAUNCHES,
                rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
                rwkv6_scan=wkv.LAUNCHES - wkv.CHUNKED_LAUNCHES,
-               planner_round=k5.ROUND_LAUNCHES,
+               planner_round=k5.ROUND_LAUNCHES - k5.MASKED_LAUNCHES,
+               planner_round_masked=k5.MASKED_LAUNCHES,
                planner_argmax=k5.LAUNCHES - k5.ROUND_LAUNCHES)
     return {k: out[k] for k in (routes or KERNELS)}
 
@@ -1569,10 +1604,10 @@ def phase_argmax():
     return rows
 
 
-def planner_instance(rng, tc, tv):
+def planner_instance(rng, tc, tv, slo=math.inf):
     """A random planning round on 100 servers in 4 sites: 20-300 apps of
-    2-6 variants, pre-placed primaries, a few dead servers, server and
-    site exclusions, an alpha."""
+    2-6 variants (each with latency SLO ``slo``), pre-placed primaries, a
+    few dead servers, server and site exclusions, an alpha."""
     cluster = tc.make_cluster(4, 25, mem=rng.uniform(4e9, 16e9),
                               compute=rng.uniform(0.5, 2.0))
     apps = [tv.Application(
@@ -1580,8 +1615,8 @@ def planner_instance(rng, tc, tv):
         variants=tv.synthetic_family(f"f{i}", rng.uniform(0.3e9, 6e9),
                                      n_variants=rng.randint(2, 6),
                                      spread=rng.uniform(1.5, 12.0)),
-        request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5)
-        for i in range(rng.randint(20, 300))]
+        request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5,
+        latency_slo=slo) for i in range(rng.randint(20, 300))]
     sids = list(cluster.servers)
     for a in apps[::3]:
         sid = rng.choice(sids)
@@ -1596,18 +1631,19 @@ def planner_instance(rng, tc, tv):
                                alpha=rng.choice([0.0, 0.1, 0.25]))
 
 
-def round_against_plain(inputs):
+def round_against_plain(inputs, lat=None):
     """The round kernel on copies of a round's inputs against its plain
-    version (``place_chunk`` + ``upgrade_chunk``) on CPU copies: the
-    (variant, server, upgrade) result and free/head/budget afterwards must
-    be bit-equal. Returns the kernel's result and free/head/budget."""
+    version (``place_chunk`` + ``upgrade_chunk``) on CPU copies, both
+    gated by the latency mask ``lat`` when one is given: the (variant,
+    server, upgrade) result and free/head/budget afterwards must be
+    bit-equal. Returns the kernel's result and free/head/budget."""
     from repro_torch.core.planner.kernels import plan_round_plain
     from repro_torch.kernels.planner_argmax import ops as k5
 
     card = [t.clone() for t in inputs.args()]
     cpu = [t.to("cpu", copy=True) for t in inputs.args()]
-    out = k5.plan_round(*card)
-    want = plan_round_plain(*cpu)
+    out = k5.plan_round(*card, lat=lat)
+    want = plan_round_plain(*cpu, lat=None if lat is None else lat.cpu())
     for name, a, b in zip(("(variant, server, upgrade)", "free", "head",
                            "budget"), (out, *card[:3]), (want, *cpu[:3])):
         if not torch.equal(a.cpu(), b):
@@ -1663,7 +1699,7 @@ def phase_planner():
         f"unplaced, objective bits")
 
 
-def sim_config(backend):
+def sim_config(backend, planner="greedy", coordinators=0):
     from repro_torch.core.simulation import SimConfig
 
     c = SIM_CELL
@@ -1672,8 +1708,9 @@ def sim_config(backend):
         servers_per_site=c["per_site"],
         server_mem=c["n_apps"] * AVG_FULL_MEM / (c["n_servers"]
                                                  * PRIMARY_UTIL),
-        headroom=0.2, seed=SEED, planner="greedy", planner_dtype="float64",
-        planner_backend=backend, traffic_rate_scale=c["rate_scale"],
+        headroom=0.2, seed=SEED, planner=planner, planner_dtype="float64",
+        planner_backend=backend, planner_coordinators=coordinators,
+        traffic_rate_scale=c["rate_scale"],
         traffic_chunk_s=c["chunk_s"], event_mode="epoch")
 
 
@@ -1871,7 +1908,8 @@ def phase_sim():
         f"{p['k5_device_ms']:.3f} ms; top "
         f"{json.dumps(p['top'])}")
     row, argmax_launches = round_row(inputs)
-    return out, launches["planner_round"], row, argmax_launches
+    return (out, launches["planner_round"], row, argmax_launches, inputs,
+            sim_records(*runs["torch"][:2]))
 
 
 def round_row(inputs):
@@ -1942,6 +1980,441 @@ def round_row(inputs):
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the rest of the planning and protection plane on the card
+# ---------------------------------------------------------------------------
+
+# (a): the apps' latency SLO (a tenth of it for every fifth app);
+# `slo_latency` puts about half the (variant, server) pairs over it
+LATENCY_SLO = 0.02
+# the unmasked failover round's device ms on this card before the round
+# kernel took a latency mask (PERF.md, kernel table)
+BEFORE_MASK_ROUND_MS = 1.48168
+# (c): tools/bench_mttr.py's (policy, planner, scheduler) CELLS at its
+# --smoke shape (tools/bench_mttr.py:29-35, :116-117, :57-61)
+MTTR_CELLS = [("faillite", None, "fifo"), ("faillite", None, "criticality"),
+              ("faillite", "locality", "fifo"),
+              ("faillite", "locality", "criticality"),
+              ("full-cold", None, "fifo")]
+MTTR_SPEC = dict(scenario="cold-load-storm", storage="edge", seed=SEED,
+                 n_sites=3, servers_per_site=4, headroom=0.2)
+MTTR_PHASES = ("detect", "plan", "queue", "fetch", "warmup", "route")
+# (d): tools/bench_shardfail.py's --smoke cells (:124-127, :45-48)
+SHARD_POLICIES = ("degrade", "reshard", "monolith")
+SHARD_SPEC = dict(scenario="tp-shard-storm", seed=SEED, n_sites=3,
+                  servers_per_site=4, headroom=0.25, storage="edge",
+                  tp_degree=2)
+# (e): tests/test_autopilot.py:208's chaos run
+AUTOPILOT_CFG = dict(n_sites=3, servers_per_site=4, headroom=0.2,
+                     policy="faillite", seed=SEED, autopilot=True,
+                     traffic_diurnal_amplitude=0.5,
+                     traffic_diurnal_period=120.0)
+# (f): benchmarks/ilp_vs_heuristic.py's quick sizes (servers, apps)
+ILP_SIZES = ((6, 8), (8, 12))
+
+
+@functools.lru_cache(maxsize=None)
+def _crc(text):
+    return zlib.crc32(text.encode())
+
+
+def slo_latency(app, variant, server):
+    """A synthetic serving latency in seconds: over LATENCY_SLO on about
+    half the (variant, server) pairs, NaN (which numpy counts as
+    allowed) on one pair in seven; the same in every process."""
+    h = (_crc(variant.name) * 31 + _crc(server.id)) % 97
+    return math.nan if h % 7 == 3 else 0.04 * h / 97.0
+
+
+def same_plan(a, b):
+    """Assignments, their order, the unplaced list and the objective
+    bits of two plans."""
+    def key(r):
+        return ([(k, v.name, s) for k, (v, s) in r.assignment.items()],
+                list(getattr(r, "unplaced", ())), float(r.objective).hex())
+    return key(a) == key(b)
+
+
+def k5_counts():
+    return read_counts(("planner_round", "planner_round_masked",
+                        "planner_argmax"))
+
+
+def phase_latency(failover_inputs):
+    """(a) On random instances per state dtype with a latency_fn, the
+    round kernel with the mask bit-equal to its plain version on the CPU,
+    and the greedy planner on the card (one masked round launch a plan)
+    equal to numpy's plan_greedy(latency_fn=...); then phase 5's failover
+    round timed with an all-true mask and without one. Returns (row,
+    masked launches of the planner calls)."""
+    import random
+
+    from repro_torch.core import cluster as tc
+    from repro_torch.core import variants as tv
+    from repro_torch.core.planner import (PlannerState, PlanRequest,
+                                          get_planner, plan_greedy)
+    from repro_torch.core.planner.torch_backend import (TorchPlanContext,
+                                                        prepare_round)
+
+    planner = get_planner("greedy")            # torch, on the card
+    ctx = TorchPlanContext()
+    masked = 0
+    n_apps = n_placed = n_changed = 0
+    allowed, pairs = 0, 0
+    for dtype in ("float64", "float32"):
+        for seed in range(PLANNER_INSTANCES):
+            cluster, apps, kw = planner_instance(random.Random(1000 + seed),
+                                                 tc, tv, slo=LATENCY_SLO)
+            for a in apps[::5]:        # a tighter SLO: some go unplaced
+                a.latency_slo = LATENCY_SLO / 10
+            st = PlannerState(cluster, subscribe=False, dtype=dtype)
+            st.sync()
+            inputs = prepare_round(apps, cluster, st, kw["exclude"],
+                                   kw["site_exclude"], kw["alpha"], ctx,
+                                   slo_latency)[3]
+            round_against_plain(inputs, lat=inputs.lat)
+            live = inputs.lat[:, :, inputs.alive]
+            allowed += int(live.sum())
+            pairs += sum(len(a.variants) for a in apps) * live.shape[2]
+            req = PlanRequest(apps=apps, cluster=cluster,
+                              state=PlannerState(cluster, subscribe=False,
+                                                 dtype=dtype),
+                              latency_fn=slo_latency, **kw)
+            reset_counts()
+            r_t = planner.plan(req)
+            n = k5_counts()
+            if n != {"planner_round": 0, "planner_round_masked": 1,
+                     "planner_argmax": 0}:
+                raise AssertionError(f"a latency plan on the card was not "
+                                     f"one masked round launch: {n}")
+            masked += n["planner_round_masked"]
+            state_np = PlannerState(cluster, subscribe=False, dtype=dtype)
+            r_np = plan_greedy(apps, cluster, state=state_np,
+                               latency_fn=slo_latency, **kw)
+            if not same_plan(r_t, r_np):
+                raise AssertionError(f"the latency plan {dtype} seed "
+                                     f"{seed} differs from numpy's")
+            free_plan = plan_greedy(apps, cluster, state=PlannerState(
+                cluster, subscribe=False, dtype=dtype), **kw)
+            n_changed += not same_plan(free_plan, r_np)
+            n_apps += len(apps)
+            n_placed += len(r_np.assignment)
+    if not n_changed:
+        raise AssertionError("the latency mask changed no plan")
+    log(f"  (a) the round kernel with a latency mask equals place_chunk + "
+        f"upgrade_chunk with it (results and free/head/budget bits), and "
+        f"the greedy planner on the card equals numpy's plan_greedy("
+        f"latency_fn=...) on {2 * PLANNER_INSTANCES} instances (float64 "
+        f"and float32, {n_apps} apps, {n_placed} placed, "
+        f"{allowed / pairs:.3f} of the (variant, alive server) pairs "
+        f"within the SLO, {n_changed} plans changed by the mask): "
+        f"assignments, order, unplaced, objective bits; masked round "
+        f"launches {masked}, one a plan")
+    return masked_round_row(failover_inputs), masked
+
+
+def masked_round_row(inputs):
+    """Phase 5's failover round with an all-true latency mask: bit-equal
+    to the round without one and to the plain version on the CPU; both
+    timed in one call, alternating, beside the time before the mask
+    existed (``BEFORE_MASK_ROUND_MS``), the plain version
+    on the card and the bound."""
+    from repro_torch.core.planner.kernels import plan_round_plain
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    args = inputs.args()
+    A, V, R = inputs.dm.shape
+    S = inputs.free.shape[0]
+    lat = torch.ones((A, V, S), dtype=torch.uint8, device=DEV)
+    out, state = round_against_plain(inputs, lat=lat)
+    bare, bare_state = round_against_plain(inputs)
+    if not (torch.equal(out, bare) and all(
+            torch.equal(a, b) for a, b in zip(state, bare_state))):
+        raise AssertionError("an all-true mask changed the failover round")
+    work = [t.clone() for t in args]
+
+    def restore():
+        for w, a in zip(work[:3], args[:3]):
+            w.copy_(a)
+
+    def kernel(mask):
+        restore()
+        k5.plan_round(*work, lat=mask)
+
+    t_restore = graph_ms(restore, reps=5, n=10)
+    times = {"none": [], "all-true": []}
+    for _ in range(3):
+        for tag, mask in (("none", None), ("all-true", lat)):
+            times[tag].append(graph_ms(functools.partial(kernel, mask),
+                                       reps=5, n=10) - t_restore)
+    ms = {tag: statistics.median(v) for tag, v in times.items()}
+
+    def plain():
+        restore()
+        plan_round_plain(*work, lat=lat)
+
+    plain_ms = eager_ms(plain, n=3, warmup=1)
+    # the round's work as round_row counts it, plus the mask bytes and
+    # compares this run's data needs: one byte per tried (variant, alive
+    # server) and per upgrade candidate
+    S_alive = int(inputs.alive.sum())
+    jr = out[0].cpu().numpy()
+    nv = (inputs.stop - inputs.start).cpu().numpy()
+    tried = int(np.where(jr < nv, jr + 1, nv).sum())
+    n_up = int((inputs.start.cpu().numpy() + jr)[jr < nv].sum())
+    mask_bytes = tried * S_alive + n_up
+    ops = tried * S_alive * (R + 2) + n_up * (2 * R + 1)
+    n_bytes = (nbytes(*args) + nbytes(*args[:3]) + out.numel() * 4
+               + mask_bytes)
+    b_ms, b_by = bound(n_bytes, ops, PEAK_FP32_FLOPS)
+    row = dict(shape=f"{A} apps x {V} variant columns x {R} resources over "
+               f"{S} servers ({S_alive} alive), "
+               f"{str(inputs.free.dtype)[6:]} state, mask (A, V, S) uint8 "
+               f"all set", max_abs_err=0.0, ms=ms["all-true"],
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, peak="fp32 non-tensor", n_apps=A,
+               per_app_us=ms["all-true"] * 1e3 / A,
+               unmasked_ms=ms["none"], mask_bytes_read=mask_bytes,
+               times=times)
+    log(f"  (a) failover round [{row['shape']}]: device ms with the mask "
+        f"{ms['all-true']:.5f}, without {ms['none']:.5f} (alternating, "
+        f"3 each: {json.dumps(times)}), before the mask existed "
+        f"{BEFORE_MASK_ROUND_MS}; "
+        f"plain with the mask (on the card, eager) {plain_ms:.5f}; bound "
+        f"{b_ms:.6f} ({b_by}, {mask_bytes} mask bytes read); bit-equal to "
+        f"the round without a mask and to the plain version on the CPU")
+    return row
+
+
+def phase_sharded(greedy_records):
+    """(b) phase 5's 1000-server x 10,000-app site-outage cell with the
+    sharded planner, on the torch backend and on numpy with 4
+    coordinators: records, placements and traffic summary equal to phase
+    5's greedy torch run. Returns the torch run's round launches."""
+    from repro_torch.core.simulation import Simulation
+
+    out = {}
+    for label, backend, coordinators in (("torch", "torch", 0),
+                                         ("numpy, 4 coordinators", "numpy",
+                                          4)):
+        reset_counts()
+        t0 = time.perf_counter()
+        sim = Simulation(sim_config(backend, "sharded", coordinators))
+        sim.setup()
+        res = sim.run_named_scenario(SIM_CELL["scenario"])
+        wall = time.perf_counter() - t0
+        n = k5_counts()
+        stats = sim.controller.planner_stats()
+        if sim_records(sim, res) != greedy_records:
+            raise AssertionError(f"sharded ({label}) differs from greedy on "
+                                 "the site-outage cell")
+        ran = stats["torch_rounds"] if backend == "torch" \
+            else stats["sharded_rounds"]
+        want_k5 = stats["torch_rounds"] if backend == "torch" else 0
+        if not ran or n["planner_round"] != want_k5 or \
+                n["planner_argmax"] or n["planner_round_masked"]:
+            raise AssertionError(f"sharded ({label}): rounds {stats}, K5 "
+                                 f"launches {n}")
+        out[label] = {"plan_wall_s": sim.controller.plan_wall_s,
+                      "wall_s": wall, "stats": stats, "launches": n}
+        log(f"  (b) sharded ({label}): plan wall "
+            f"{sim.controller.plan_wall_s:.6f} s, setup + scenario "
+            f"{wall:.3f} s, {json.dumps(stats)}, K5 launches "
+            f"{json.dumps(n)}; records, placements and traffic summary "
+            f"equal to phase 5's greedy torch run")
+        del sim, res
+        gc.collect()
+    return out["torch"]["launches"]["planner_round"]
+
+
+def run_on_both(make_spec, label):
+    """One spec through run_experiment on the torch planner backend and on
+    numpy: equal fingerprints; the torch run's K5 launches (counters
+    zeroed just before it, read just after) one round kernel launch per
+    round with apps wherever the torch planner planned, no argmax."""
+    from repro_torch.experiment import run_experiment
+
+    res = {}
+    for backend in ("torch", "numpy"):
+        reset_counts()
+        res[backend] = run_experiment(make_spec(backend))
+        if backend == "torch":
+            n = k5_counts()
+    if res["torch"].fingerprint() != res["numpy"].fingerprint():
+        raise AssertionError(f"{label}: torch and numpy fingerprints differ")
+    stats = res["torch"].extras["planner"]
+    if n["planner_argmax"] or n["planner_round_masked"] or (
+            stats.get("torch_rounds") and not n["planner_round"]):
+        raise AssertionError(f"{label}: planner {stats}, K5 launches {n}")
+    return res["torch"], n
+
+
+def mttr_summary(res):
+    """tools/bench_mttr.py's run_cell on one seed's RunResult."""
+    records = list(res.records)
+    recovered = [r for r in records if r.recovered]
+    cold = [r for r in recovered if r.mode.startswith("cold")]
+    downs = np.asarray([w.client_downtime for w in res.traffic.windows
+                        if w.recovered and math.isfinite(w.client_downtime)],
+                       dtype=float)
+    phase_ms = {}
+    for ph in MTTR_PHASES:
+        vals = [r.phases.get(ph, 0.0) for r in cold if r.phases]
+        phase_ms[ph] = 1e3 * sum(vals) / len(vals) if vals else 0.0
+    return {"n": len(records),
+            "recovery_rate": len(recovered) / max(len(records), 1),
+            "ctl_mttr_ms": 1e3 * sum(r.mttr for r in recovered)
+            / max(len(recovered), 1),
+            "client_p50_ms": float(np.percentile(downs, 50)) * 1e3
+            if downs.size else -1.0,
+            "client_p99_ms": float(np.percentile(downs, 99)) * 1e3
+            if downs.size else -1.0,
+            "phase_ms": phase_ms}
+
+
+def phase_mttr():
+    """(c) tools/bench_mttr.py's five cells at its --smoke shape on both
+    planner backends. Returns the torch runs' round launches."""
+    from repro_torch.experiment import ExperimentSpec
+
+    total = 0
+    for policy, planner, scheduler in MTTR_CELLS:
+        def spec(backend):
+            return ExperimentSpec(policy=policy, planner=planner,
+                                  scheduler=scheduler,
+                                  planner_backend=backend, **MTTR_SPEC)
+        label = f"{policy}/{planner or 'greedy'}/{scheduler}"
+        res, n = run_on_both(spec, label)
+        total += n["planner_round"]
+        log(f"  (c) {label}: torch == numpy fingerprint; "
+            f"{json.dumps(mttr_summary(res))}; planner "
+            f"{json.dumps(res.extras['planner'])}; K5 round launches "
+            f"{n['planner_round']}")
+    return total
+
+
+def phase_shardfail():
+    """(d) tools/bench_shardfail.py's --smoke cells (tp_degree 2) on both
+    planner backends. Returns the torch runs' round launches."""
+    from repro_torch.experiment import ExperimentSpec
+
+    total = 0
+    for policy in SHARD_POLICIES:
+        res, n = run_on_both(
+            lambda backend: ExperimentSpec(shard_policy=policy,
+                                           planner_backend=backend,
+                                           **SHARD_SPEC), policy)
+        total += n["planner_round"]
+        t = res.traffic
+        log(f"  (d) tp-shard-storm tp 2 {policy}: torch == numpy "
+            f"fingerprint; client MTTR {t.client_mttr_avg * 1e3:.3f} ms, "
+            f"availability {t.availability:.6f}, ladder actions "
+            f"{json.dumps(res.extras['shard'].get('actions', {}))}; K5 "
+            f"round launches {n['planner_round']}")
+    return total
+
+
+def phase_autopilot():
+    """(e) the chaos run with the autopilot on both planner backends:
+    equal fingerprints, promotions and demotions. Returns the torch run's
+    round launches."""
+    from repro_torch.core.simulation import SimConfig, Simulation
+
+    fps, moves = {}, {}
+    for backend in ("torch", "numpy"):
+        sim = Simulation(SimConfig(planner_backend=backend, **AUTOPILOT_CFG))
+        pilot = sim.controller.autopilot
+        decide, tally = pilot.decide, {"promote": 0, "demote": 0,
+                                       "sweeps": 0}
+
+        def counted(view, decide=decide, tally=tally):
+            dec = decide(view)
+            tally["promote"] += len(dec.promote)
+            tally["demote"] += len(dec.demote)
+            tally["sweeps"] += 1
+            return dec
+
+        pilot.decide = counted
+        reset_counts()
+        sim.setup()
+        fps[backend] = sim.run_named_scenario("chaos").fingerprint()
+        if backend == "torch":
+            n = k5_counts()
+            stats = sim.controller.planner_stats()
+        moves[backend] = tally
+    if fps["torch"] != fps["numpy"] or moves["torch"] != moves["numpy"]:
+        raise AssertionError(f"autopilot: torch and numpy differ {moves}")
+    if not stats["torch_rounds"] or not n["planner_round"] or \
+            n["planner_argmax"] or n["planner_round_masked"]:
+        raise AssertionError(f"autopilot: planner {stats}, K5 {n}")
+    log(f"  (e) chaos with the autopilot: torch == numpy fingerprint; "
+        f"{moves['torch']['sweeps']} sweeps, "
+        f"{moves['torch']['promote']} promotions, "
+        f"{moves['torch']['demote']} demotions; K5 round launches "
+        f"{n['planner_round']} in {stats['torch_rounds']} rounds")
+    return n["planner_round"]
+
+
+def phase_ilp():
+    """(f) benchmarks/ilp_vs_heuristic.py's instances: the exact
+    branch-and-bound (numpy and scipy, on the host) against the greedy
+    planner on the card; the ILP's objective must be at least greedy's."""
+    import random
+
+    from repro_torch.core.cluster import make_cluster
+    from repro_torch.core.planner import PlanRequest, get_planner
+    from repro_torch.core.variants import Application, synthetic_family
+
+    ilp = get_planner("ilp", node_limit=300, time_limit_s=20.0)
+    greedy = get_planner("greedy")
+    for n_servers, n_apps in ILP_SIZES:
+        rng = random.Random(42)
+        cluster = make_cluster(2, n_servers // 2, mem=12e9)
+        apps = [Application(id=f"a{i}", family=f"f{i}",
+                            variants=synthetic_family(
+                                f"f{i}", rng.uniform(1e9, 5e9),
+                                n_variants=4, spread=6.0),
+                            critical=True,
+                            request_rate=rng.uniform(0.5, 2.0))
+                for i in range(n_apps)]
+        primaries = {}
+        servers = cluster.alive_servers()
+        for i, a in enumerate(apps):
+            sid = servers[i % len(servers)].id
+            cluster.place(a.id, a.variants[-1], sid, "primary")
+            primaries[a.id] = sid
+        req = PlanRequest(apps=apps, cluster=cluster, primaries=primaries,
+                          alpha=0.1)
+        t0 = time.perf_counter()
+        res = ilp.plan(req)
+        t_ilp = time.perf_counter() - t0
+        heur = greedy.plan(req)
+        if res.objective < heur.objective - 1e-6:
+            raise AssertionError(f"ilp {res.objective} < greedy "
+                                 f"{heur.objective} at {n_servers} x "
+                                 f"{n_apps}")
+        log(f"  (f) ilp {n_servers} servers x {n_apps} apps: objective "
+            f"{res.objective:.6f} (optimal {res.optimal}, {res.nodes} "
+            f"nodes, wall {t_ilp:.3f} s) >= greedy on the card "
+            f"{heur.objective:.6f}")
+
+
+def phase_plane(failover_inputs, greedy_records):
+    """Phase 7, (a)-(f). Returns the masked round's row and the round
+    kernel's launches by path."""
+    row, masked = phase_latency(failover_inputs)
+    paths = {"planner_round": {
+        "sim site-outage sharded torch (phase 7b)":
+            phase_sharded(greedy_records),
+        "bench_mttr smoke cells (phase 7c)": phase_mttr(),
+        "bench_shardfail smoke cells (phase 7d)": phase_shardfail(),
+        "chaos with the autopilot (phase 7e)": phase_autopilot()},
+        "planner_round_masked": {
+            "greedy planner with a latency_fn (phase 7a)": masked}}
+    phase_ilp()
+    return row, paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the live failover testbed through the entry points, on the card
 # ---------------------------------------------------------------------------
 
@@ -1986,7 +2459,8 @@ def phase_testbed_smoke():
         raise AssertionError(f"client MTTR {t.client_mttr_avg}")
     if not all(st.ok > 0 for st in stats.values()):
         raise AssertionError(f"an app's clients got no answer: {stats}")
-    idle = [k for k in KERNELS if k not in STANDALONE and not launches[k]]
+    idle = [k for k in KERNELS if k not in STANDALONE + LATENCY_ONLY
+            and not launches[k]]
     if idle:
         raise AssertionError(f"{idle} never launched in the testbed run")
     log(f"  testbed == sim failover choices {tb.recovery_by_app()}; "
@@ -2232,7 +2706,8 @@ def main() -> int:
     t0 = time.monotonic()
     rows["planner_argmax"] = phase_argmax()
     phase_planner()
-    _, k5_launches, round_row_, argmax_launches = phase_sim()
+    (_, k5_launches, round_row_, argmax_launches, failover_inputs,
+     greedy_records) = phase_sim()
     rows["planner_round"] = {KERNELS["planner_round"][3]: round_row_}
     log(f"  phase 5 took {time.monotonic() - t0:.1f} s")
 
@@ -2243,6 +2718,13 @@ def main() -> int:
     t0 = time.monotonic()
     _, tb_full = phase_testbed_full()
     log(f"  phase 6 (b) took {time.monotonic() - t0:.1f} s")
+
+    log("phase 7: the planning and protection plane on the card")
+    t0 = time.monotonic()
+    masked_row, plane_paths = phase_plane(failover_inputs, greedy_records)
+    rows["planner_round_masked"] = {
+        KERNELS["planner_round_masked"][3]: masked_row}
+    log(f"  phase 7 took {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name, (_pkg, src, replaces, headline) in KERNELS.items():
@@ -2261,6 +2743,7 @@ def main() -> int:
                 by_path[f"sim {SIM_CELL['scenario']} torch"] = k5_launches
             by_path["testbed smoke (phase 6a)"] = tb_smoke[name]
             by_path["testbed full width (phase 6b)"] = tb_full[name]
+            by_path.update(plane_paths.get(name, {}))
         main_path = sum(by_path.values())
         if not main_path:
             raise AssertionError(f"{name} was never launched on the main "
@@ -2281,7 +2764,8 @@ def main() -> int:
                                              "library_ms", "bound_ms",
                                              "bound_by", "max_abs_err",
                                              "before_ms", "cold_ms",
-                                             "per_app_us", "n_split")
+                                             "per_app_us", "n_split",
+                                             "unmasked_ms")
                            if k in x}
                      for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")

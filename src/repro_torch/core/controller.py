@@ -130,7 +130,7 @@ class RoutingTable:
 @dataclass
 class _PendingLoad:
     """One queued recovery load awaiting dispatch."""
-    prio: tuple                # (stage, not critical, -rate, seq)
+    prio: tuple                # (stage, -boost, not critical, -rate, seq)
     app: Application
     variant: Variant
     server_id: str
@@ -175,6 +175,10 @@ class RecoveryScheduler:
         self._seq = itertools.count()
         self._queued: Dict[str, List[_PendingLoad]] = {}
         self._inflight: Dict[str, _PendingLoad] = {}
+        # autopilot-set per-app priority boosts (observed request rates):
+        # empty by default, so the priority tuple's boost slot is 0.0
+        # for every app and the historical ordering is untouched
+        self.boosts: Dict[str, float] = {}
         # resilience-layer hook: ("start"|"end", t) fired when the
         # number of outstanding recovery loads crosses 0<->1, so the
         # traffic plane can admission-control during the drain. None
@@ -211,9 +215,14 @@ class RecoveryScheduler:
 
         return wrapped
 
+    def set_boosts(self, boosts: Dict[str, float]):
+        """Reorder future drains by per-app boost (higher first); only
+        the autopilot calls this. In-flight loads are not preempted."""
+        self.boosts = dict(boosts)
+
     def priority(self, app: Application, stage: int = 0) -> tuple:
-        return (stage, not app.critical, -app.request_rate,
-                next(self._seq))
+        return (stage, -self.boosts.get(app.id, 0.0), not app.critical,
+                -app.request_rate, next(self._seq))
 
     def submit(self, app: Application, variant: Variant, server_id: str,
                on_ready: Callable[[float], None], *,
@@ -305,8 +314,10 @@ class FailLiteController:
                  datastore: Optional[DataStore] = None,
                  registry: Optional[ModelRegistry] = None,
                  scheduler: str = "fifo",
+                 autopilot: Optional[object] = None,
                  planner_dtype: str = "float64",
                  planner_backend: str = "torch",
+                 planner_coordinators: int = 0,
                  planner_device: DeviceLike = None):
         assert policy in POLICIES, policy
         self.cluster = cluster
@@ -329,10 +340,13 @@ class FailLiteController:
         self.use_ilp = use_ilp
         # planner selection by registry name (docs/PLANNER.md); the
         # legacy `use_ilp` flag maps onto the "ilp" planner.
-        # the greedy planner's backend: "torch" (the default) or "numpy";
-        # the torch backend runs on the card unless the caller asks for
-        # "cpu" (the port's device rule)
+        # backend/coordinator knobs only apply to the greedy family —
+        # other policies (ilp, load-aware, ...) ignore them. The backend
+        # is "torch" (the default) or "numpy"; the torch backend runs on
+        # the card unless the caller asks for "cpu" (the port's device
+        # rule)
         self.planner_backend = planner_backend
+        self.planner_coordinators = int(planner_coordinators)
         self.planner_device = planner_device
         self.planner = self._resolve_planner(
             planner or ("ilp" if use_ilp else "greedy"))
@@ -387,6 +401,22 @@ class FailLiteController:
         # per-app recovery generation; bumping it invalidates callbacks of
         # loads scheduled before a newer failure/departure superseded them
         self._gen: Dict[str, int] = {}
+        # adaptive protection (core/autopilot.py): None = the static
+        # criticality rule, bit-exact historical behavior. When set, the
+        # re-protection sweep consults it first and `_warm_candidates`
+        # follows its protected set. `metrics_feed` is the backend's
+        # window into the live traffic plane: a zero-arg callable
+        # returning {app_id: AppSignal} at the current instant.
+        self.autopilot = autopilot
+        self.metrics_feed: Optional[Callable[[], Dict]] = None
+        # shard plane (core/shardgroup.py): None = no tensor-parallel
+        # groups, bit-exact historical behavior. When attached, grouped
+        # apps are intercepted in `handle_failures` and walked through
+        # the shard recovery ladder instead of the warm/cold split.
+        self.shards = None
+
+    def attach_shard_manager(self, manager) -> None:
+        self.shards = manager
 
     @property
     def epoch(self) -> int:
@@ -399,7 +429,8 @@ class FailLiteController:
 
     # -- warm-gap bookkeeping ----------------------------------------------
     def _is_warm_candidate(self, app: Application) -> bool:
-        """Static warm-candidate rule per policy."""
+        """Static warm-candidate rule per policy (the autopilot's
+        adaptive set bypasses the incremental tracker entirely)."""
         if self.policy == "full-warm":
             return True
         if self.policy == "full-cold":
@@ -448,7 +479,27 @@ class FailLiteController:
                                           "variant": app.full.name})
         return server_id
 
+    def _shard_protected(self, app_id: str) -> bool:
+        """True while the app is protected by a live/degraded/resharding
+        shard group — such apps get no warm monolith backups (their
+        protection IS the shard ladder); a fallen-back group's app
+        re-enters normal warm planning."""
+        return self.shards is not None and self.shards.is_grouped(app_id)
+
     def _warm_candidates(self) -> List[Application]:
+        if self.shards is not None:
+            return [a for a in self._warm_candidates_base()
+                    if not self.shards.is_grouped(a.id)]
+        return self._warm_candidates_base()
+
+    def _warm_candidates_base(self) -> List[Application]:
+        if (self.autopilot is not None
+                and getattr(self.autopilot, "protected", None) is not None
+                and self.policy == "faillite"):
+            # adaptive set, ranked by observed rate; before the first
+            # decide() the static criticality rule below applies
+            return [self.apps[aid] for aid in self.autopilot.last.protected
+                    if aid in self.apps]
         if self.policy in ("faillite", "full-warm-k"):
             return [a for a in self.apps.values() if a.critical]
         if self.policy == "full-warm":
@@ -485,12 +536,14 @@ class FailLiteController:
         return assignment
 
     def _resolve_planner(self, name: str):
-        """Instantiate a registered planner, forwarding the backend and
-        device to the greedy planner."""
+        """Instantiate a registered planner, forwarding the backend /
+        device / coordinator knobs to the policies that take them."""
         kwargs = {}
-        if name == "greedy":
-            kwargs = {"backend": self.planner_backend,
-                      "device": self.planner_device}
+        if name in ("greedy", "sharded"):
+            kwargs["backend"] = self.planner_backend
+            kwargs["device"] = self.planner_device
+        if name == "sharded" and self.planner_coordinators:
+            kwargs["coordinators"] = self.planner_coordinators
         return get_planner(name, **kwargs)
 
     def planner_stats(self) -> dict:
@@ -499,8 +552,9 @@ class FailLiteController:
         (backend routing, dense fallbacks) — surfaced in
         `RunResult.extras["planner"]`."""
         out = {"name": self.planner.name,
-               "backend": self.planner_backend}
-        skip = ("name", "backend")
+               "backend": self.planner_backend,
+               "coordinators": self.planner_coordinators}
+        skip = ("name", "backend", "coordinators")
         for planner in {id(self.planner): self.planner,
                         id(self.fast_planner): self.fast_planner}.values():
             for k, v in getattr(planner, "stats", {}).items():
@@ -582,12 +636,24 @@ class FailLiteController:
 
         records: Dict[str, RecoveryRecord] = {}
 
+        # shard plane first: grouped apps (member slices carry role
+        # "shard"; their reshard loads carry role "loading" too) are
+        # walked through the shard recovery ladder and excluded from
+        # the warm/cold split below. No-op when no manager is attached.
+        grouped: Set[str] = set()
+        if self.shards is not None:
+            grouped = {aid for aid in self.apps
+                       if self.shards.is_grouped(aid)}
+            records.update(self.shards.handle_lost(failed_set, t_fail,
+                                                   t_detect))
+
         # Apps hit by this epoch: lost their serving primary OR an
         # in-flight recovery load (role "loading" from a prior epoch).
         affected_ids: List[str] = []
         for inst in lost:
             if (inst.role in ("primary", "loading")
                     and inst.app_id in self.apps
+                    and inst.app_id not in grouped
                     and inst.app_id not in affected_ids):
                 affected_ids.append(inst.app_id)
         affected = [self.apps[a] for a in affected_ids]
@@ -809,6 +875,8 @@ class FailLiteController:
     def handle_departure(self, app_id: str):
         """App leaves: release every replica and forget its bookkeeping."""
         self._bump(app_id)
+        if self.shards is not None:
+            self.shards.forget(app_id)
         app = self.apps.pop(app_id, None)
         if self.registry is not None and app is not None:
             # arch-mix siblings share variant names: keep checkpoints
@@ -837,11 +905,59 @@ class FailLiteController:
     # after every churn/failure/rejoin event.
     # ------------------------------------------------------------------
     def reprotect(self) -> Dict[str, int]:
+        demoted = self._autopilot_step() if self.autopilot is not None \
+            else 0
         retried = self._retry_unrecovered()
         replanned = self.replan_lost_backups()
         replicated = self._replicate_underprotected()
         return {"retried": retried, "replanned": len(replanned),
-                "replicated": replicated}
+                "replicated": replicated, "demoted": demoted}
+
+    def _autopilot_step(self) -> int:
+        """Run one adaptive-protection sweep: consult the policy with a
+        live view of the metrics plane, then apply its decisions —
+        demotions are evicted here (promotions materialize through
+        `replan_lost_backups`, which follows the protected set via
+        `_warm_candidates`), the replication target is retuned on the
+        registry, and the drain scheduler gets fresh priority boosts."""
+        from repro_torch.core.autopilot import AutopilotView
+
+        signals = self.metrics_feed() if self.metrics_feed is not None \
+            else {}
+        view = AutopilotView(
+            now=self.clock.now(),
+            apps=dict(self.apps),
+            warm_ids=set(self.warm),
+            signals=signals,
+            fail_times=[next(iter(ep.values())).t_fail
+                        for ep in self.epoch_records if ep],
+            base_replication=(self.registry.storage.replication
+                              if self.registry is not None else 2),
+            unrecovered=set(self._unrecovered))
+        dec = self.autopilot.decide(view)
+
+        n_demoted = 0
+        for app_id in dec.demote:
+            entry = self.warm.get(app_id)
+            if entry is None:
+                continue
+            self._warm_del(app_id)
+            v, sid, key = entry
+            self.cluster.remove(key, sid)
+            self.ds.delete(f"warm/{app_id}")
+            # demoted, not abandoned: checkpoint bytes stay on disk, so
+            # the app keeps cold (progressive) protection
+            self.cold_protected.add(app_id)
+            self.ds.put(f"cold/{app_id}", {"variant": v.name,
+                                           "reason": "autopilot"})
+            n_demoted += 1
+        if (dec.replication is not None and self.registry is not None
+                and not self.registry.storage.replicate_all
+                and dec.replication != self.registry.storage.replication):
+            self.registry.storage = self.registry.storage.with_(
+                replication=dec.replication)
+        self.scheduler.set_boosts(dec.boosts)
+        return n_demoted
 
     def _replicate_underprotected(self, max_per_round: int = 2) -> int:
         """Idle-round proactive checkpoint re-replication: when the
@@ -929,7 +1045,12 @@ class FailLiteController:
 
         The incremental `_warm_missing` set makes this O(gap) instead of
         O(apps) per sweep — the difference between a sub-second and a
-        minutes-long reprotect tick at 100k apps."""
+        minutes-long reprotect tick at 100k apps. The autopilot's
+        adaptive protected set changes between sweeps outside the
+        tracker's view, so it keeps the full scan."""
+        if self.autopilot is not None:
+            return [a for a in self._warm_candidates()
+                    if a.id not in self.warm]
         if self.policy == "full-cold":
             return []
         apps = []
@@ -1004,7 +1125,8 @@ class FailLiteController:
         crit = [a for a in self.apps.values() if a.critical
                 and self.primaries.get(a.id) in self.cluster.servers
                 and self.cluster.servers[self.primaries[a.id]].alive]
-        return (sum(1 for a in crit if a.id in self.warm) / len(crit)
+        return (sum(1 for a in crit if a.id in self.warm
+                    or self._shard_protected(a.id)) / len(crit)
                 if crit else 1.0)
 
     def summarize(self, records=None) -> Dict[str, float]:

@@ -16,6 +16,10 @@ as the worst-fit reduction:
     give-then-take two-step replayed op for op;
   * ``scatter_rows`` — the dirty-row update of the device mirror.
 
+A request's latency mask (``lat``, (A, V, S) over global server rows)
+gates both passes: a (variant, server) pair over the app's SLO is
+neither a placement nor an upgrade candidate, as in numpy.
+
 Bit-exactness contract (tests/test_torch_planner.py holds every result
 against numpy's ``vectorized.plan_greedy``): every arithmetic operation
 is the same IEEE operation in the same dtype and order as the numpy
@@ -66,7 +70,7 @@ def _row(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def place_chunk(free: torch.Tensor, head: torch.Tensor,
                 budget: torch.Tensor, cap: torch.Tensor,
                 allowed: torch.Tensor, dm: torch.Tensor, dmc: torch.Tensor,
-                start: Sequence[int], stop: Sequence[int]):
+                start: Sequence[int], stop: Sequence[int], lat=None):
     """Lines 7-12 for ``n`` apps in placement order.
 
     free (S, R) and head (S,) in the state dtype and budget (R,) f64 are
@@ -74,6 +78,8 @@ def place_chunk(free: torch.Tensor, head: torch.Tensor,
     alive and not excluded. dm (n, V, R) f64: variant demands; dmc
     (n, V, R): the feasibility thresholds in the state dtype. start/stop
     (host ints): the variants app i may try, ``start[i] <= j < stop[i]``.
+    lat (n, V, S) bool or None: variant j may go to server s only where
+    ``lat[i, j, s]`` is set.
 
     Returns (j, k), int32 (n,) on the device: the variant index relative
     to ``start[i]`` and the server row. App i is placed iff
@@ -94,6 +100,8 @@ def place_chunk(free: torch.Tensor, head: torch.Tensor,
         # state dtype against the precomputed thresholds, and its
         # worst-fit server (first maximum of headroom): one K5 launch
         feas = (free[None] >= dmc[i, a:b, None, :]).all(-1) & allowed[i]
+        if lat is not None:
+            feas &= lat[i, a:b]
         kj, _ = masked_argmax(head.expand(nv, S), feas)
         bok = (budget >= dme[i, a:b]).all(-1)
         jj = torch.where(bok & (kj >= 0), iota[:nv], nv).amin()
@@ -118,12 +126,13 @@ def place_chunk(free: torch.Tensor, head: torch.Tensor,
 def upgrade_chunk(free: torch.Tensor, head: torch.Tensor,
                   budget: torch.Tensor, cap: torch.Tensor,
                   dm: torch.Tensor, jcur: Sequence[int],
-                  k: Sequence[int]) -> torch.Tensor:
+                  k: Sequence[int], lat=None) -> torch.Tensor:
     """Lines 13-14 for ``n`` apps in placement order, after every app of
     the round has been placed: app i, placed on row ``k[i]`` with variant
     ``jcur[i]`` (host ints; k < 0 = unplaced), moves to the first larger
-    variant j < jcur whose extra demand fits its row and the α-budget.
-    free/head/budget are updated in place.
+    variant j < jcur whose extra demand fits its row and the α-budget
+    (and, with a latency mask ``lat`` (n, V, S) bool, is allowed on that
+    row). free/head/budget are updated in place.
 
     Returns j_up, int32 (n,) on the device: the new variant, or -1.
     """
@@ -142,6 +151,8 @@ def upgrade_chunk(free: torch.Tensor, head: torch.Tensor,
         row = free[kk]
         row64 = row.to(f64)
         ok = (row64 >= ext_e).all(-1) & (budget >= ext_e).all(-1)
+        if lat is not None:
+            ok &= lat[i, :jc, kk]
         ju = torch.where(ok, iota[:jc], jc).amin()
         take = ju < jc
         d_up = dm[i].index_select(0, ju.clamp(max=jc - 1).view(1).long())[0]
@@ -170,34 +181,36 @@ def dense_allowed(alive: torch.Tensor, excl_off: torch.Tensor,
 
 
 def plan_round_plain(free, head, budget, cap, alive, excl_off, excl_row,
-                     dm, dmc, start, stop) -> torch.Tensor:
+                     dm, dmc, start, stop, lat=None) -> torch.Tensor:
     """The plain version of K5's round kernel: ``place_chunk`` then
     ``upgrade_chunk`` over the dense ``allowed`` of the CSR exclusions.
     Same arguments, updates and (3, A) int32 result as
     ``kernels.planner_argmax.ops.plan_round``."""
     a, b = start.tolist(), stop.tolist()
+    if lat is not None:
+        lat = lat.bool()
     j, k = place_chunk(free, head, budget, cap,
                        dense_allowed(alive, excl_off, excl_row), dm, dmc,
-                       a, b)
+                       a, b, lat)
     jr, kr = torch.stack([j, k]).tolist()
     placed = [x < s1 - s0 for x, s0, s1 in zip(jr, a, b)]
     jc = [x + s0 if p else -1 for x, s0, p in zip(jr, a, placed)]
     kp = [x if p else -1 for x, p in zip(kr, placed)]
-    up = upgrade_chunk(free, head, budget, cap, dm, jc, kp)
+    up = upgrade_chunk(free, head, budget, cap, dm, jc, kp, lat)
     return torch.stack([j, torch.tensor(kp, dtype=torch.int32,
                                         device=j.device), up])
 
 
 def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
-               dmc, start, stop) -> torch.Tensor:
+               dmc, start, stop, lat=None) -> torch.Tensor:
     """One planning round (Lines 7-14) for A apps in placement order:
     K5's round kernel on the card, ``plan_round_plain`` on the CPU; free,
     head and budget are updated in place. See
-    ``kernels.planner_argmax.ops.plan_round`` for the arguments and the
-    (3, A) int32 result (variant relative to start, server row, upgraded
-    variant)."""
+    ``kernels.planner_argmax.ops.plan_round`` for the arguments (``lat``:
+    the optional (A, V, S) latency mask) and the (3, A) int32 result
+    (variant relative to start, server row, upgraded variant)."""
     args = (free, head, budget, cap, alive, excl_off, excl_row, dm, dmc,
-            start, stop)
+            start, stop, lat)
     if free.device.type == "cuda":
         return k5.plan_round(*args)
     return plan_round_plain(*args)

@@ -2,8 +2,9 @@
 to numpy.
 
 The port of ``repro/core/planner/jax_backend.py``. `plan_greedy_torch`
-is a transliteration of `vectorized.plan_greedy` (default rank, no
-latency/score/tiebreak hooks) whose inner loops run as one
+is a transliteration of `vectorized.plan_greedy` (default rank, with
+its latency hook; no score/tiebreak/site-index hooks) whose inner loops
+run as one
 ``plan_round`` (planner/kernels.py): on the card one launch of K5's round
 kernel, on the CPU its plain version. The
 host side is byte for byte the numpy prologue — ordering, ordered-sum δ
@@ -201,8 +202,9 @@ class TorchPlanContext:
 @dataclass
 class RoundInputs:
     """One planning round's operands on the device, apps in placement
-    order: the arguments of ``plan_round``, in its order. free and head
-    are the round's working copies (clones of the mirror's rows)."""
+    order: the arguments of ``plan_round``, in its order (``args()``),
+    and its ``lat`` keyword, the latency mask or None. free and head are
+    the round's working copies (clones of the mirror's rows)."""
     free: torch.Tensor
     head: torch.Tensor
     budget: torch.Tensor
@@ -214,6 +216,7 @@ class RoundInputs:
     dmc: torch.Tensor
     start: torch.Tensor
     stop: torch.Tensor
+    lat: Optional[torch.Tensor] = None     # plan_round's keyword
 
     def args(self):
         return (self.free, self.head, self.budget, self.cap, self.alive,
@@ -224,11 +227,13 @@ class RoundInputs:
 def prepare_round(apps: List[Application], cluster, state: PlannerState,
                   exclude: Dict[str, Set[str]],
                   site_exclude: Dict[str, Set[str]], alpha: float,
-                  ctx: TorchPlanContext):
+                  ctx: TorchPlanContext, latency_fn=None):
     """The host prologue of a round — the numpy path's exact code — and
     its upload: (placement order, start (A,), nvar (A,), RoundInputs);
     only the order, and None for the rest, when there is nothing to plan.
-    ``state`` must be synced."""
+    ``state`` must be synced. With a ``latency_fn``, ``RoundInputs.lat``
+    is the (A, V, S) uint8 mask of the (variant, server) pairs within
+    each app's SLO (see `latency_mask`)."""
     order = sorted(apps, key=lambda a: (not a.critical, -a.request_rate))
     rows = state.alive_rows()
     if not apps or rows.size == 0:
@@ -279,6 +284,10 @@ def prepare_round(apps: List[Application], cluster, state: PlannerState,
                     excl_row.append(i)
         excl_n[a_i + 1] = len(excl_row)
 
+    lat = (None if latency_fn is None else
+           latency_mask(apps, order, cluster, state, rows, dm_all.shape[1],
+                        latency_fn))
+
     dev = ctx.device
     free0, head0, alive, cap = ctx.mirror(state).arrays()
     i32 = np.int32
@@ -287,8 +296,31 @@ def prepare_round(apps: List[Application], cluster, state: PlannerState,
         cap=cap, alive=alive, excl_off=_to(excl_n.astype(i32), dev),
         excl_row=_to(np.asarray(excl_row, i32), dev), dm=_to(dm_all, dev),
         dmc=_to(_cmp_thresholds(dm_all, state.dtype), dev),
-        start=_to(start.astype(i32), dev), stop=_to(nvar.astype(i32), dev))
+        start=_to(start.astype(i32), dev), stop=_to(nvar.astype(i32), dev),
+        lat=None if lat is None else _to(lat, dev))
     return order, start, nvar, inputs
+
+
+def latency_mask(apps: List[Application], order: List[Application],
+                 cluster, state: PlannerState, rows: np.ndarray, V: int,
+                 latency_fn) -> np.ndarray:
+    """(A, V, S) uint8, apps in placement order, over GLOBAL server rows:
+    1 where variant j of app i may serve from server s. The numpy path's
+    exact code: one ``latency_fn(app, v, server)`` call per variant and
+    alive server, in ``apps`` order, and ``not (lat > slo)``, so NaN
+    counts as allowed. Padded variants and dead rows are 0 (the round
+    never reads a dead row)."""
+    servers = [cluster.servers[state.server_ids[int(i)]] for i in rows]
+    by_id: Dict[str, np.ndarray] = {}
+    for app in apps:
+        lt = np.array([[latency_fn(app, v, srv) for srv in servers]
+                       for v in app.variants], dtype=np.float64)
+        by_id[app.id] = np.logical_not(lt > app.latency_slo)
+    lat = np.zeros((len(order), V, len(state.server_ids)), np.uint8)
+    for i, app in enumerate(order):
+        lm = by_id[app.id]
+        lat[i][np.ix_(np.arange(lm.shape[0]), rows)] = lm
+    return lat
 
 
 def plan_greedy_torch(apps: List[Application], cluster=None, *,
@@ -296,16 +328,19 @@ def plan_greedy_torch(apps: List[Application], cluster=None, *,
                       exclude: Optional[Dict[str, Set[str]]] = None,
                       site_exclude: Optional[Dict[str, Set[str]]] = None,
                       alpha: float = 0.0,
+                      latency_fn=None,
                       ctx: Optional[TorchPlanContext] = None,
                       device: DeviceLike = None,
                       ) -> HeuristicResult:
     """Algorithm 1 on device tensors — same contract (and same bits) as
-    `vectorized.plan_greedy` with the default worst-fit rank.
+    `vectorized.plan_greedy` with the default worst-fit rank, including
+    its ``latency_fn`` hook (a latency mask gates the round's placements
+    and upgrades).
 
     ``device`` (used when no ``ctx`` is given) is ``cuda`` unless the
-    caller asks for ``cpu``. Unsupported hooks (latency_fn / score_fn /
-    tiebreak_fn / site_index) are the caller's responsibility: the
-    planner policies route such requests to the numpy path."""
+    caller asks for ``cpu``. The numpy-only hooks (score_fn /
+    tiebreak_fn / site_index) are the caller's responsibility, as in the
+    JAX package: the planner policies that use them plan on numpy."""
     t0 = time.time()
     if state is None:
         assert cluster is not None, "need a cluster or a PlannerState"
@@ -317,7 +352,8 @@ def plan_greedy_torch(apps: List[Application], cluster=None, *,
     state.sync()
 
     order, start, nvar, inputs = prepare_round(
-        apps, cluster, state, exclude or {}, site_exclude or {}, alpha, ctx)
+        apps, cluster, state, exclude or {}, site_exclude or {}, alpha, ctx,
+        latency_fn)
     if inputs is None:
         assignment: Dict[str, tuple] = {}
         return HeuristicResult(assignment, [a.id for a in order],
@@ -325,7 +361,7 @@ def plan_greedy_torch(apps: List[Application], cluster=None, *,
                                eq1_objective(assignment, apps))
     # Lines 7-14 over the round's apps, then one read: placements and
     # upgrades
-    jku = plan_round(*inputs.args()).cpu().numpy()
+    jku = plan_round(*inputs.args(), lat=inputs.lat).cpu().numpy()
     placed = jku[0] < nvar - start
     jj = np.where(placed, jku[0] + start, -1)
 
@@ -344,4 +380,5 @@ def plan_greedy_torch(apps: List[Application], cluster=None, *,
 
 
 __all__ = ["AppMatrixCache", "DeviceMirror", "RoundInputs",
-           "TorchPlanContext", "plan_greedy_torch", "prepare_round"]
+           "TorchPlanContext", "latency_mask", "plan_greedy_torch",
+           "prepare_round"]

@@ -50,6 +50,7 @@ from repro_torch.core.scenario import (AppArrival, AppDeparture, LinkDegrade,
                                  LoadSpike, Scenario, ServerFail,
                                  ServerRejoin, ShardFail, SiteFail,
                                  build_scenario)
+from repro_torch.core.shardgroup import ShardGroupManager
 from repro_torch.core.traffic import TrafficConfig, TrafficPlane
 from repro_torch.core.variants import (
     Application, Variant, synthetic_family, LOAD_BW, WARMUP_S)
@@ -295,18 +296,25 @@ class SimConfig:
     # (halves PlannerState memory at 10k servers; NOT fingerprint-
     # preserving — scale runs only)
     planner_dtype: str = "float64"
-    # greedy planner backend: "torch" (the default; device tensors with
-    # K5 as the worst-fit reduction, planner/torch_backend.py) or
-    # "numpy" (the parity oracle on the host) — bit-identical
-    # assignments and objective
+    # planner compute backend: "torch" (the default; device tensors with
+    # K5's round kernel, planner/torch_backend.py) or "numpy" (the parity
+    # oracle on the host) — bit-identical assignments and objective. Only
+    # the greedy family ("greedy"/"sharded") honors it.
+    # `planner_coordinators` >= 2 plans sharded rounds with that many
+    # concurrent site-slice coordinators (numpy sharded path only)
     planner_backend: str = "torch"
+    planner_coordinators: int = 0
     # where planner_backend="torch" runs: None = the card (raises when
     # there is none), "cpu" only when asked for
     planner_device: Optional[str] = None
     # shard plane (core/shardgroup.py): tp_degree >= 2 deploys every
-    # app as a tensor-parallel group; not ported yet, so only 1 (the
-    # monolith path) runs
+    # app as a tensor-parallel group spanning tp_degree servers and
+    # attaches the shard recovery ladder; 1 (the default) keeps the
+    # historical monolith path bit-exact. `shard_policy` picks the
+    # ladder rung: "auto" (critical -> degrade, rest -> reshard),
+    # "degrade", "reshard", or "monolith" (immediate fallback)
     tp_degree: int = 1
+    shard_policy: str = "auto"
 
 
 def synthetic_apps(cfg: SimConfig, rng: random.Random,
@@ -410,16 +418,13 @@ class Simulation:
         self.executor = SimLoadExecutor(self.events, bw=cfg.load_bw,
                                         registry=self.registry)
         self.detector = FailureDetector(self.clock, interval=HEARTBEAT_S)
-        # not ported yet: the adaptive-protection autopilot and the shard
-        # plane (ROADMAP.md Queue 1, "shardgroup / autopilot")
+        pilot = None
         if cfg.autopilot:
-            raise NotImplementedError(
-                "autopilot=True is not ported yet; see ROADMAP.md Queue 1, "
-                "shardgroup / autopilot (core/autopilot.py)")
-        if cfg.tp_degree > 1:
-            raise NotImplementedError(
-                "tp_degree > 1 is not ported yet; see ROADMAP.md Queue 1, "
-                "shardgroup / autopilot (core/shardgroup.py)")
+            from repro_torch.core.autopilot import (AutopilotConfig,
+                                              AutopilotPolicy)
+            pilot = AutopilotPolicy(AutopilotConfig(
+                diurnal_amplitude=cfg.traffic_diurnal_amplitude,
+                diurnal_period=cfg.traffic_diurnal_period))
         if cfg.event_mode not in ("epoch", "per-event"):
             raise ValueError(f"unknown event_mode: {cfg.event_mode!r}")
         self.controller = FailLiteController(
@@ -428,9 +433,17 @@ class Simulation:
             site_independence=cfg.site_independence, use_ilp=cfg.use_ilp,
             planner=cfg.planner, detector=self.detector,
             registry=self.registry, scheduler=cfg.scheduler,
-            planner_dtype=cfg.planner_dtype,
+            autopilot=pilot, planner_dtype=cfg.planner_dtype,
             planner_backend=cfg.planner_backend,
+            planner_coordinators=cfg.planner_coordinators,
             planner_device=cfg.planner_device)
+        # shard plane: only constructed at tp_degree >= 2 (off-path
+        # bit-exactness — no manager, no shard branch anywhere)
+        self.shards: Optional[ShardGroupManager] = None
+        if cfg.tp_degree > 1:
+            self.shards = ShardGroupManager(
+                self.controller, tp_degree=cfg.tp_degree,
+                policy=cfg.shard_policy, defer=self.events.after)
         self.apps = apps if apps is not None else synthetic_apps(
             cfg, self.rng)
         # per-server "other tenants" reservation, recorded at setup so a
@@ -459,6 +472,8 @@ class Simulation:
                 # the observer hook is a no-op when unset (off-path)
                 self.controller.scheduler.drain_observer = \
                     self.traffic.record_drain
+        if cfg.autopilot:
+            self.controller.metrics_feed = self._autopilot_feed
         # warm-headroom observation: (bytes, count) sampled once per
         # re-protection sweep (pure measurement — no events, no RNG)
         self._warm_samples: List[Tuple[float, int]] = []
@@ -471,7 +486,15 @@ class Simulation:
         app = self.controller.apps.get(app_id)
         if app is None:
             return
-        v = app.variant_by_name(variant_name)
+        try:
+            v = app.variant_by_name(variant_name)
+        except KeyError:
+            # synthesized shard variants (degraded-TP continuation) live
+            # in the shard manager's side table, never in app.variants
+            v = (self.shards.lookup_variant(variant_name)
+                 if self.shards is not None else None)
+            if v is None:
+                raise
         self.traffic.mark_up(app_id, self.clock.now(),
                              accuracy=v.accuracy, service_time=v.compute,
                              full_accuracy=app.full.accuracy,
@@ -479,6 +502,43 @@ class Simulation:
 
     def _on_route_drop(self, app_id: str):
         self.traffic.mark_gone(app_id, self.clock.now())
+
+    def _autopilot_feed(self):
+        """Live metrics-plane view for the autopilot: observed arrival
+        rates and recent client downtime from the traffic plane, plus a
+        modeled SLO margin for the variant each route currently serves.
+        Pure observation — reading it perturbs no event or RNG state."""
+        from repro_torch.core.autopilot import AppSignal
+
+        now = self.clock.now()
+        ctl = self.controller
+        rates = (self.traffic.current_rates()
+                 if self.traffic is not None else {})
+        downs = (self.traffic.downtime_since(now - 30.0, now)
+                 if self.traffic is not None else {})
+        tcfg = self.traffic.cfg if self.traffic is not None \
+            else TrafficConfig()
+        out = {}
+        for app_id, app in ctl.apps.items():
+            q = rates.get(app_id, app.request_rate)
+            route = ctl.routing.routes.get(app_id)
+            try:
+                v = app.variant_by_name(route[1]) if route else app.full
+            except KeyError:
+                v = app.full
+            util = min(q * v.compute * tcfg.util_k, tcfg.util_cap)
+            latency = v.compute / (1.0 - util)
+            out[app_id] = AppSignal(
+                rate=q,
+                slo_margin=app.latency_slo - latency,
+                down=app_id in ctl._unrecovered,
+                recent_downtime_s=downs.get(app_id, 0.0))
+        return out
+
+    def shard_summary(self) -> Optional[Dict]:
+        """Shard-plane report (None when tp_degree == 1): group states,
+        ladder actions taken, and per-action MTTR averages."""
+        return self.shards.summary() if self.shards is not None else None
 
     def protection_summary(self) -> Dict[str, float]:
         """Warm-replica headroom actually spent over the run: mean and
@@ -555,7 +615,10 @@ class Simulation:
         placed = []
         for app in self.apps:
             try:
-                self.controller.deploy_primary(app)
+                if self.shards is not None:
+                    self.shards.deploy_group(app)
+                else:
+                    self.controller.deploy_primary(app)
                 placed.append(app)
             except ValueError:
                 continue
@@ -598,10 +661,18 @@ class Simulation:
             self._injection_seq += 1
             if self.traffic is not None:
                 routes = self.controller.routing.routes
+                # shard plane: a group member loss can black out an app
+                # whose route points at a SURVIVING lead (reshard /
+                # monolith fallback pause serving); a seamless degrade
+                # of a non-lead member keeps serving and is excluded
+                shard_dark = (self.shards.darkened_by(set(server_ids))
+                              if self.shards is not None else set())
+                marked = set()
                 for inst in lost:
                     if (inst.app_id in self.controller.apps
                             and routes.get(inst.app_id, (None,))[0]
                             == inst.server_id):
+                        marked.add(inst.app_id)
                         backup = None
                         if self.resilience is not None:
                             # hedged requests go to the app's warm
@@ -615,6 +686,9 @@ class Simulation:
                                     backup = (v.accuracy, v.compute)
                         self.traffic.mark_down(inst.app_id, t_fail,
                                                epoch, backup=backup)
+                for app_id in sorted(shard_dark - marked):
+                    if app_id in self.controller.apps:
+                        self.traffic.mark_down(app_id, t_fail, epoch)
             t_detect = (self.detector.detection_latency_bound()
                         + DETECT_SWEEP_S / 4)
             self.events.after(t_detect, lambda: self.controller
@@ -711,8 +785,9 @@ class Simulation:
             if isinstance(ev, ServerFail):
                 self._schedule_failure([ev.server], ev.t)
             elif isinstance(ev, ShardFail):
-                # physically a server crash (with tp_degree 1 there is
-                # no shard group to walk through a recovery ladder)
+                # physically a server crash; the controller's shard
+                # plane (when attached) walks hit groups through the
+                # degrade/reshard/fallback ladder at detection time
                 self._schedule_failure([ev.server], ev.t)
             elif isinstance(ev, SiteFail):
                 self._schedule_failure(list(self.cluster.sites[ev.site]),

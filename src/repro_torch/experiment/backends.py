@@ -13,10 +13,10 @@ registered here:
     — the same `ScenarioEvent` stream replayed on a wall clock.
 
 Both plan on `spec.device` (the card unless "cpu" is asked for) with the
-greedy planner's torch backend unless `spec.planner_backend` says
-"numpy". What the port does not have yet raises NotImplementedError
-naming its ROADMAP item: `planner_coordinators >= 2` (sharded rounds),
-`autopilot` and `tp_degree > 1` (the shard plane).
+greedy family's torch backend unless `spec.planner_backend` says
+"numpy". The testbed's shard plane is not ported yet: `tp_degree > 1`
+there raises NotImplementedError naming its ROADMAP item (TP shard); the
+simulator runs it.
 
 Both resolve the scenario the same way (named library or a programmatic
 `spec.scenario_builder(cluster, apps, rng)`) and both report through the
@@ -101,26 +101,12 @@ def primary_kill_scenario(app_id=None, *, t_fail: float = 1.0,
 # sim backend
 # ---------------------------------------------------------------------------
 
-def _check_ported(spec: ExperimentSpec) -> None:
-    """Raise NotImplementedError for the spec fields whose modules the
-    port does not have yet."""
-    if spec.planner_coordinators >= 2:
-        raise NotImplementedError(
-            "planner_coordinators >= 2 (the sharded planner) is not ported "
-            "yet; see ROADMAP.md Queue 1, other planners")
-    if spec.tp_degree > 1:
-        raise NotImplementedError(
-            "tp_degree > 1 is not ported yet; see ROADMAP.md Queue 1, "
-            "shardgroup / autopilot and TP shard")
-
-
 class SimBackend:
     name = "sim"
 
     def run(self, spec: ExperimentSpec) -> RunResult:
         from repro_torch.core.simulation import SimConfig, Simulation
 
-        _check_ported(spec)
         t0 = time.perf_counter()
         cfg_kw = dict(
             n_sites=spec.n_sites, servers_per_site=spec.servers_per_site,
@@ -136,10 +122,12 @@ class SimBackend:
             autopilot=spec.autopilot, resilience=spec.resilience,
             event_mode=spec.event_mode, planner_dtype=spec.planner_dtype,
             planner_backend=spec.planner_backend,
+            planner_coordinators=spec.planner_coordinators,
             planner_device=spec.device,
             load_bw=spec.load_bw, warmup_s=spec.warmup_s,
             nic_bw=spec.nic_bw, cloud_bw=spec.cloud_bw,
-            replication=spec.replication, tp_degree=spec.tp_degree)
+            replication=spec.replication,
+            tp_degree=spec.tp_degree, shard_policy=spec.shard_policy)
         apps = list(spec.apps) if spec.apps is not None else None
         if apps is None and spec.app_mix == "arch":
             from repro_torch.experiment.workload import (ARCH_COMPUTE_CAP,
@@ -171,7 +159,9 @@ class SimBackend:
             plan_wall_s=sim.controller.plan_wall_s,
             wall_s=time.perf_counter() - t0, sim_result=res,
             extras={"protection": sim.protection_summary(),
-                    "planner": sim.controller.planner_stats()})
+                    "planner": sim.controller.planner_stats(),
+                    **({"shard": sim.shard_summary()}
+                       if spec.tp_degree > 1 else {})})
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +178,6 @@ class TestbedBackend:
             raise ValueError(
                 "autopilot needs the simulator's live metrics feed; "
                 "run the spec with backend='sim'")
-        _check_ported(spec)
         t0 = time.perf_counter()
         tb = MiniTestbed(
             n_sites=spec.n_sites, servers_per_site=spec.servers_per_site,
@@ -202,7 +191,8 @@ class TestbedBackend:
             cloud_bw=spec.cloud_bw, replication=spec.replication,
             resilience=spec.resilience, tp_degree=spec.tp_degree,
             apps=list(spec.apps) if spec.apps is not None else None,
-            device=spec.device, planner_backend=spec.planner_backend)
+            device=spec.device, planner_backend=spec.planner_backend,
+            planner_coordinators=spec.planner_coordinators)
         try:
             tb.deploy()
             scenario = resolve_scenario(spec, tb.cluster, tb.apps)

@@ -62,6 +62,9 @@ def _build_parser() -> argparse.ArgumentParser:
                           "Poisson)")
     run.add_argument("--diurnal-period", type=float, default=None,
                      dest="traffic_diurnal_period")
+    run.add_argument("--autopilot", action="store_true", default=None,
+                     help="adaptive protection from the live metrics "
+                          "plane (core/autopilot.py; sim only)")
     run.add_argument("--resilience", action="store_true", default=None,
                      help="request-plane resilience toolkit with default "
                           "knobs: hedging, breakers, bulkheads, "
@@ -80,6 +83,10 @@ def _build_parser() -> argparse.ArgumentParser:
                      help="planner compute backend: torch on the device "
                           "(default) or the numpy host oracle — "
                           "bit-identical plans")
+    run.add_argument("--planner-coordinators", type=int, default=None,
+                     dest="planner_coordinators", metavar="N",
+                     help="sharded planner: plan with N concurrent "
+                          "site-slice coordinators (numpy backend)")
     run.add_argument("--device", default=None, choices=["cuda", "cpu"],
                      help="where engines and the torch planner run "
                           "(default: the CUDA card; raises without one)")
@@ -93,6 +100,15 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--scheduler", default=None,
                      choices=["fifo", "criticality"],
                      help="recovery drain-queue order")
+    run.add_argument("--tp-degree", type=int, default=None,
+                     dest="tp_degree",
+                     help="deploy every app as a tensor-parallel group "
+                          "spanning this many servers (shard plane; sim "
+                          "only in the port); 1 = monoliths")
+    run.add_argument("--shard-policy", default=None, dest="shard_policy",
+                     choices=["auto", "degrade", "reshard", "monolith"],
+                     help="shard recovery ladder on a member loss "
+                          "(auto = critical->degrade, rest->reshard)")
     run.add_argument("--load-bw", type=float, default=None,
                      dest="load_bw",
                      help="disk->HBM bytes/s (Fig. 2b load model)")
@@ -121,10 +137,11 @@ def _spec_from_args(args) -> "ExperimentSpec":
                  "n_sites", "servers_per_site", "headroom",
                  "critical_frac", "app_mix", "apps_per_arch",
                  "traffic_rate_scale", "traffic_diurnal_amplitude",
-                 "traffic_diurnal_period", "client_hz",
+                 "traffic_diurnal_period", "autopilot", "client_hz",
                  "settle_s", "time_scale", "storage", "scheduler",
                  "load_bw", "warmup_s", "event_mode", "planner_dtype",
-                 "planner_backend", "device"):
+                 "planner_backend", "planner_coordinators",
+                 "tp_degree", "shard_policy", "device"):
         val = getattr(args, attr, None)
         if val is not None:
             overrides[attr] = val

@@ -87,9 +87,9 @@ class ExperimentSpec:
     event_mode: str = "epoch"
     planner_dtype: str = "float64"
     # planner compute backend: "torch" (the default: device tensors with
-    # the masked-argmax kernel, bit-identical to numpy) or "numpy" (the
-    # host oracle); planner_coordinators >= 2 (sharded rounds) is not
-    # ported yet and raises
+    # K5's round kernel, bit-identical to numpy) or "numpy" (the host
+    # oracle); planner_coordinators >= 2 runs sharded numpy rounds with
+    # that many concurrent site-slice coordinators
     planner_backend: str = "torch"
     planner_coordinators: int = 0
     # where the port runs its engines and its torch planner: None = the

@@ -48,6 +48,17 @@
 // when it fits, else in global memory, where it stays in L2. The host
 // reads the round's (variant, server, upgrade) once.
 //
+// A request with a latency hook passes its mask `lat` (A, V, S) bytes over
+// the global server rows, in placement order: variant j of app i may go
+// to server s only where lat[(i * V + j) * S + s] is set. The place loop
+// tests it beside the feasibility compare and the upgrade pass beside its
+// candidate test, as numpy gates both passes. The mask is read from
+// global memory (at most A * V * S bytes, once each); a null `lat` skips
+// both reads. The place loop first folds a server's mask bytes for the
+// variants it reduces into one bit word: testing the bytes inside the
+// variant loop kept four row pointers live and made the float kernel
+// spill 76 bytes.
+//
 // Bit-exactness with numpy (vectorized.plan_greedy): the feasibility
 // compare is in the state dtype against thresholds the host rounded up
 // (`_cmp_thresholds`), the alpha-budget and upgrade tests are f64, and
@@ -190,6 +201,7 @@ plan_round_kernel(T* free_g, T* head_g, double* budget_g,
                   const int* __restrict__ excl_row,
                   const double* __restrict__ dm, const T* __restrict__ dmc,
                   const int* __restrict__ start, const int* __restrict__ stop,
+                  const unsigned char* __restrict__ lat,
                   int A, int S, int V, int R, int* out, int* stamp_g,
                   int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -241,15 +253,26 @@ plan_round_kernel(T* free_g, T* head_g, double* budget_g,
                            ? dmc[((size_t)i * V + j0 + jj) * R + r]
                            : T(0);
       }
+      // this app's mask rows from variant j0 on, or null
+      const unsigned char* lrow =
+          lat != nullptr ? lat + ((size_t)i * V + j0) * S : nullptr;
       for (int s = tid; s < S; s += RT) {
         if (!alive[s] || stamp[s] == i) continue;
+        // the latency mask's bits for this server, variant j0 + jj in bit jj
+        unsigned allow = (1u << MAXV) - 1;
+        if (lrow != nullptr) {
+          allow = 0;
+#pragma unroll
+          for (int jj = 0; jj < MAXV; ++jj)
+            if (jj < nj && lrow[jj * S + s]) allow |= 1u << jj;
+        }
         T f[MAXR];
 #pragma unroll
         for (int r = 0; r < MAXR; ++r) f[r] = r < R ? fr[(size_t)s * R + r] : T(0);
         const T h = hd[s];
 #pragma unroll
         for (int jj = 0; jj < MAXV; ++jj) {
-          bool ok = jj < nj;
+          bool ok = jj < nj && ((allow >> jj) & 1u);
 #pragma unroll
           for (int r = 0; r < MAXR; ++r) ok = ok && (r >= R || f[r] >= thr[jj][r]);
           // ascending s per thread: a strict improvement keeps the first
@@ -333,11 +356,13 @@ plan_round_kernel(T* free_g, T* head_g, double* budget_g,
       const int jc = start[i] + jr;
       int up = -1;
       if (k >= 0 && jc > 0) {
+        const unsigned char* lapp =
+            lat != nullptr ? lat + (size_t)i * V * S : nullptr;
         const double* dc = dm + ((size_t)i * V + jc) * R;
         T* f = fr + (size_t)k * R;
         for (int u0 = 0; u0 < jc && up < 0; u0 += 32) {
           const int ju = u0 + lane;
-          bool ok = ju < jc;
+          bool ok = ju < jc && (lapp == nullptr || lapp[ju * S + k]);
           if (ok) {
             const double* du = dm + ((size_t)i * V + ju) * R;
 #pragma unroll
@@ -386,8 +411,9 @@ cudaError_t launch_round(void* free, void* head, void* budget,
                          const void* cap, const void* alive,
                          const void* excl_off, const void* excl_row,
                          const void* dm, const void* dmc, const void* start,
-                         const void* stop, void* out, void* stamp, int A,
-                         int S, int V, int R, cudaStream_t stream) {
+                         const void* stop, const void* lat, void* out,
+                         void* stamp, int A, int S, int V, int R,
+                         cudaStream_t stream) {
   const size_t bytes = (size_t)S * (R + 1) * sizeof(T) + (size_t)S * 5;
   const int staged = bytes <= (size_t)STAGE_MAX;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -400,8 +426,9 @@ cudaError_t launch_round(void* free, void* head, void* budget,
       static_cast<const unsigned char*>(alive),
       static_cast<const int*>(excl_off), static_cast<const int*>(excl_row),
       static_cast<const double*>(dm), static_cast<const T*>(dmc),
-      static_cast<const int*>(start), static_cast<const int*>(stop), A, S, V,
-      R, static_cast<int*>(out), static_cast<int*>(stamp), staged);
+      static_cast<const int*>(start), static_cast<const int*>(stop),
+      static_cast<const unsigned char*>(lat), A, S, V, R,
+      static_cast<int*>(out), static_cast<int*>(stamp), staged);
   return cudaGetLastError();
 }
 
@@ -438,7 +465,9 @@ extern "C" int faillite_masked_argmax(const void* values, const void* mask,
 // (S, R) state dtype; alive (S,) bool; the exclusions as CSR by app:
 // excl_off int32 (A + 1) offsets into excl_row int32 (server rows); dm
 // (A, V, R) float64 demands and dmc (A, V, R) state-dtype thresholds;
-// start/stop int32 (A,): the variants app i may try; out int32 (3, A):
+// start/stop int32 (A,): the variants app i may try; lat (A, V, S) bytes,
+// the latency mask (nonzero = allowed; V * S < 2^31), or null for none;
+// out int32 (3, A):
 // the placed variant relative to start (stop - start when unplaced), the
 // server row (-1) and the upgraded variant (-1); stamp int32 (S,) scratch.
 // All contiguous. dtype 0 = float32, 2 = float64; R <= 4. One launch on
@@ -448,8 +477,9 @@ extern "C" int faillite_plan_round(void* free, void* head, void* budget,
                                    const void* excl_off, const void* excl_row,
                                    const void* dm, const void* dmc,
                                    const void* start, const void* stop,
-                                   void* out, void* stamp, int A, int S, int V,
-                                   int R, int dtype, void* stream) {
+                                   const void* lat, void* out, void* stamp,
+                                   int A, int S, int V, int R, int dtype,
+                                   void* stream) {
   if (A <= 0) return 0;
   if (S <= 0 || V <= 0 || R <= 0 || R > MAXR)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -457,10 +487,10 @@ extern "C" int faillite_plan_round(void* free, void* head, void* budget,
   if (dtype == 0)
     return static_cast<int>(launch_round<float>(
         free, head, budget, cap, alive, excl_off, excl_row, dm, dmc, start,
-        stop, out, stamp, A, S, V, R, st));
+        stop, lat, out, stamp, A, S, V, R, st));
   if (dtype == 2)
     return static_cast<int>(launch_round<double>(
         free, head, budget, cap, alive, excl_off, excl_row, dm, dmc, start,
-        stop, out, stamp, A, S, V, R, st));
+        stop, lat, out, stamp, A, S, V, R, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

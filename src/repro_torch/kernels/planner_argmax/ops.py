@@ -10,9 +10,10 @@ Both are exact — comparisons only — so the choice never changes a
 placement.
 
 ``plan_round``: a whole planning round of the greedy planner in one
-launch, with that reduction inline (the kernel's header says how). It
-takes CUDA tensors only; its plain version is the planner's
-``place_chunk`` + ``upgrade_chunk`` (core/planner/kernels.py), which
+launch, with that reduction inline (the kernel's header says how),
+optionally gated by a request's latency mask. It takes CUDA tensors
+only; its plain version is the planner's ``place_chunk`` +
+``upgrade_chunk`` (core/planner/kernels.py), which
 ``core.planner.kernels.plan_round`` runs for CPU tensors.
 """
 
@@ -27,10 +28,12 @@ from repro_torch.kernels import _build
 
 NAME = "planner_argmax"
 
-# launches of either K5 kernel, and of the round kernel alone, since the
-# last reset; read and reset by chip_smoke.py
+# launches of either K5 kernel, of the round kernel alone, and of the
+# round kernel with a latency mask, since the last reset; read and reset
+# by chip_smoke.py
 LAUNCHES = 0
 ROUND_LAUNCHES = 0
+MASKED_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -117,12 +120,12 @@ def _round_lib():
     fn = lib.faillite_plan_round
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = [_P] * 13 + [_I] * 5 + [_P]
+        fn.argtypes = [_P] * 14 + [_I] * 5 + [_P]
     return fn
 
 
 def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
-               dmc, start, stop):
+               dmc, start, stop, lat=None):
     """One planning round on the card (Algorithm 1, Lines 7-14) for A apps
     in placement order, in one launch; free (S, R), head (S,) in the state
     dtype and budget (R,) f64 are updated in place.
@@ -130,11 +133,13 @@ def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
     cap (S, R) state dtype; alive (S,) bool; excl_off int32 (A + 1) and
     excl_row int32: each app's excluded server rows, as CSR; dm (A, V, R)
     f64 demands and dmc (A, V, R) state-dtype feasibility thresholds;
-    start/stop int32 (A,): the variants app i may try. Returns int32
-    (3, A) on the card: the placed variant relative to start (stop -
-    start when unplaced), the server row (-1 when unplaced) and the
-    upgraded variant (-1 for none)."""
-    global LAUNCHES, ROUND_LAUNCHES
+    start/stop int32 (A,): the variants app i may try; lat (A, V, S) uint8
+    or bool, or None: the latency mask, variant j of app i allowed on
+    server row s where ``lat[i, j, s]`` is set (None: every pair).
+    Returns int32 (3, A) on the card: the placed variant relative to
+    start (stop - start when unplaced), the server row (-1 when unplaced)
+    and the upgraded variant (-1 for none)."""
+    global LAUNCHES, ROUND_LAUNCHES, MASKED_LAUNCHES
     st = free.dtype
     if st not in _DTYPES:
         raise TypeError(f"want a float32 or float64 state; got {st}")
@@ -151,6 +156,12 @@ def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
             "dmc": (dmc, st, (A, V, R)),
             "start": (start, torch.int32, (A,)),
             "stop": (stop, torch.int32, (A,))}
+    if lat is not None:
+        if lat.dtype not in (torch.uint8, torch.bool):
+            raise ValueError(f"lat must be uint8 or bool; got {lat.dtype}")
+        if V * S >= 2**31:       # the kernel indexes an app's mask by int
+            raise ValueError(f"lat: V * S = {V * S} must be below 2**31")
+        want["lat"] = (lat, lat.dtype, (A, V, S))
     for name, (t, dt, shape) in want.items():
         if t.device.type != "cuda" or t.device != free.device:
             raise ValueError(f"plan_round takes tensors on one CUDA device; "
@@ -166,12 +177,14 @@ def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
     err = fn(free.data_ptr(), head.data_ptr(), budget.data_ptr(),
              cap.data_ptr(), alive.data_ptr(), excl_off.data_ptr(),
              excl_row.data_ptr(), dm.data_ptr(), dmc.data_ptr(),
-             start.data_ptr(), stop.data_ptr(), out.data_ptr(),
+             start.data_ptr(), stop.data_ptr(),
+             None if lat is None else lat.data_ptr(), out.data_ptr(),
              stamp.data_ptr(), A, S, V, R, _DTYPES[st], stream)
     _build.check(err, NAME)
     with _count_lock:
         LAUNCHES += 1
         ROUND_LAUNCHES += 1
+        MASKED_LAUNCHES += lat is not None
     return out
 
 

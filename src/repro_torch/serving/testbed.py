@@ -38,7 +38,9 @@ Departures from the JAX testbed:
     `run_scenario` returns them as `load_errors` (the JAX testbed treats
     any RuntimeError as a dead server, and in PyTorch a failed kernel
     build or launch and an out-of-memory error are RuntimeErrors);
-  * the shard plane (`tp_degree > 1`) is not ported yet and raises.
+  * the shard plane (`tp_degree > 1`) is not ported yet and raises;
+  * `planner_coordinators` reaches the controller (the sharded numpy
+    planner's site-slice coordinators; the same bits either way).
 """
 
 from __future__ import annotations
@@ -396,7 +398,8 @@ class MiniTestbed:
                  tp_degree: int = 1,
                  apps: Optional[Sequence[Application]] = None,
                  device: Optional[str] = None,
-                 planner_backend: str = "torch"):
+                 planner_backend: str = "torch",
+                 planner_coordinators: int = 0):
         if tp_degree > 1:
             raise NotImplementedError(
                 "tp_degree > 1 (the testbed's shard plane) is not ported "
@@ -464,7 +467,8 @@ class MiniTestbed:
             alpha=alpha, site_independence=site_independence,
             planner=planner, detector=self.detector,
             registry=self.registry, scheduler=scheduler,
-            planner_backend=planner_backend, planner_device=device)
+            planner_backend=planner_backend, planner_device=device,
+            planner_coordinators=planner_coordinators)
         # controller routing -> serving router + telemetry, through the
         # first-class RoutingTable observer hooks
         self.controller.routing.observer = self._on_route_set

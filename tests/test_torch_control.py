@@ -154,7 +154,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.rwkv6_3b"} <= mods
     assert {f"repro_torch.core.{m}" for m in PLANNING_COPIES + (
         "controller", "simulation", "planner.kernels",
-        "planner.torch_backend", "planner.policies")} <= mods
+        "planner.torch_backend", "planner.policies",
+        "planner.sharded")} <= mods
     assert {"repro_torch.kernels.planner_argmax.ops",
             "repro_torch.kernels.planner_argmax.ref"} <= mods
     assert {"repro_torch.models.moe", "repro_torch.configs.qwen3_32b",
@@ -173,7 +174,9 @@ def test_port_imports_neither_jax_nor_repro():
 # copies verbatim (only the imports name repro_torch)
 PLANNING_COPIES = ("cluster", "planner.base", "planner.state",
                    "planner.vectorized", "datastore", "modelstate",
-                   "metrics", "resilience", "traffic", "scenario", "chaos")
+                   "metrics", "resilience", "traffic", "scenario", "chaos",
+                   "planner.legacy", "planner.ilp", "shardgroup",
+                   "autopilot")
 
 
 @pytest.mark.parametrize("mod", PLANNING_COPIES)

@@ -12,8 +12,9 @@ largest |h| (its scan rounds a chunk's carry relative to the state);
 fp32 model logits 1e-3; K6 (the int8 matmul, f32 scalar and bf16
 tensor-core routes, split-K at decode) 10x those, as
 tests/test_kernels.py:117. K5 (the
-planner's masked argmax and its round kernel) and the torch planner
-backend are exact. The last test runs the live testbed's smoke spec on
+planner's masked argmax and its round kernel, with and without a latency
+mask) and the torch planner backend, the sharded planner on it included,
+are exact. The last test runs the live testbed's smoke spec on
 the card.
 """
 
@@ -586,6 +587,145 @@ def test_chunked_and_round_kernels_deterministic(cuda):
             runs.append([k5.plan_round(*work)] + work[:3])
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _slo_lat(app, v, srv):
+    """A latency over the apps' SLO of 0.02 on about half the (variant,
+    server) pairs, NaN (allowed, as in numpy) on one pair in seven."""
+    import zlib
+    h = zlib.crc32(f"{v.name}|{srv.id}".encode()) % 97
+    return float("nan") if h % 7 == 3 else 0.04 * h / 97.0
+
+
+def _latency_instances(dtype):
+    """Random planning rounds with a latency SLO on every app, dead
+    servers and server and site exclusions: (apps, cluster, keywords)."""
+    import random
+
+    from repro_torch.core.cluster import make_cluster
+    from repro_torch.core.variants import Application, synthetic_family
+
+    for seed in range(6):
+        rng = random.Random(100 + seed)
+        cluster = make_cluster(4, 25, mem=rng.uniform(4e9, 24e9))
+        apps = [Application(
+            id=f"a{i}", family=f"f{i}",
+            variants=synthetic_family(f"f{i}", rng.uniform(0.3e9, 6e9),
+                                      n_variants=rng.randint(2, 6),
+                                      spread=rng.uniform(1.5, 12.0)),
+            request_rate=rng.uniform(0.2, 3.0), critical=rng.random() < 0.5,
+            latency_slo=0.02) for i in range(rng.randint(30, 200))]
+        sids = list(cluster.servers)
+        for sid in rng.sample(sids, 10):
+            cluster.fail_server(sid)
+        kw = dict(exclude={a.id: {rng.choice(sids)} for a in apps
+                           if rng.random() < 0.7},
+                  site_exclude={a.id: {f"site{rng.randrange(4)}"}
+                                for a in apps if rng.random() < 0.3},
+                  alpha=rng.choice([0.0, 0.1]))
+        yield apps, cluster, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_planner_masked_round_matches_plain_on_cuda(cuda, dtype):
+    """K5's round kernel with a latency mask bit-equal to its plain
+    version on the CPU (placements, upgrades, free/head/budget), an
+    all-true mask equal to no mask, and plan_greedy_torch with a
+    latency_fn on the card equal to numpy's plan_greedy(latency_fn=...)."""
+    from repro_torch.core.planner import PlannerState, plan_greedy
+    from repro_torch.core.planner.kernels import plan_round_plain
+    from repro_torch.core.planner.torch_backend import (TorchPlanContext,
+                                                        plan_greedy_torch,
+                                                        prepare_round)
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    ctx = TorchPlanContext(cuda)
+    n_masked = 0
+    for apps, cluster, kw in _latency_instances(dtype):
+        st = PlannerState(cluster, subscribe=False, dtype=dtype)
+        st.sync()
+        inp = prepare_round(apps, cluster, st, kw["exclude"],
+                            kw["site_exclude"], kw["alpha"], ctx,
+                            _slo_lat)[3]
+        lat = inp.lat
+        assert lat.dtype == torch.uint8 and 0 < int(lat.sum()) < lat.numel()
+        card = [t.clone() for t in inp.args()]
+        cpu = [t.to("cpu", copy=True) for t in inp.args()]
+        k5.ROUND_LAUNCHES = k5.MASKED_LAUNCHES = 0
+        out = k5.plan_round(*card, lat=lat)
+        torch.cuda.synchronize()
+        assert k5.ROUND_LAUNCHES == k5.MASKED_LAUNCHES == 1
+        assert torch.equal(out.cpu(), plan_round_plain(*cpu, lat=lat.cpu()))
+        for a, b in zip(card[:3], cpu[:3]):
+            assert torch.equal(a.cpu(), b)
+        ones = [t.clone() for t in inp.args()]
+        bare = [t.clone() for t in inp.args()]
+        o1 = k5.plan_round(*ones, lat=torch.ones_like(lat, dtype=torch.bool))
+        o0 = k5.plan_round(*bare)
+        assert torch.equal(o1, o0) and all(
+            torch.equal(a, b) for a, b in zip(ones[:3], bare[:3]))
+        r_t = plan_greedy_torch(apps, cluster, state=PlannerState(
+            cluster, subscribe=False, dtype=dtype), ctx=ctx,
+            latency_fn=_slo_lat, **kw)
+        r_np = plan_greedy(apps, cluster, state=PlannerState(
+            cluster, subscribe=False, dtype=dtype), latency_fn=_slo_lat,
+            **kw)
+        assert [(k, v.name, s) for k, (v, s) in r_t.assignment.items()] \
+            == [(k, v.name, s) for k, (v, s) in r_np.assignment.items()]
+        assert r_t.unplaced == r_np.unplaced
+        assert r_t.objective == r_np.objective
+        n_masked += 1
+    assert n_masked == 6
+    with pytest.raises(ValueError, match="lat"):
+        k5.plan_round(*[t.clone() for t in inp.args()],
+                      lat=lat[:, :, :-1].contiguous())
+    with pytest.raises(ValueError, match="uint8 or bool"):
+        k5.plan_round(*[t.clone() for t in inp.args()], lat=lat.float())
+
+
+@pytest.mark.cuda
+def test_sharded_planner_on_card_matches_greedy(cuda):
+    """The sharded planner on the torch backend (one round-kernel launch a
+    round) against the greedy planner on the card and the numpy sharded
+    planner with coordinators: equal assignments, order, unplaced list
+    and objective bits (tests/test_scale.py's instances)."""
+    import random
+
+    from repro_torch.core.cluster import Cluster, Server
+    from repro_torch.core.planner import PlanRequest, get_planner
+    from repro_torch.core.variants import Application, synthetic_family
+    from repro_torch.kernels.planner_argmax import ops as k5
+
+    for seed in range(3):
+        g = np.random.default_rng(seed)
+        cluster = Cluster([Server(
+            id=f"s{si}-{sj}", site=f"site{si}",
+            capacity={"mem": float(g.uniform(8e9, 32e9)),
+                      "compute": float(g.uniform(0.5, 2.0))})
+            for si in range(6) for sj in range(8)])
+        rng = random.Random(seed)
+        apps = [Application(
+            id=f"a{i}", family=f"f{i}",
+            variants=synthetic_family(f"f{i}", rng.uniform(0.5e9, 4e9),
+                                      n_variants=4),
+            request_rate=rng.uniform(0.5, 2.0), critical=rng.random() < 0.5)
+            for i in range(120)]
+        req = PlanRequest(apps=apps, cluster=cluster, alpha=0.1)
+        plans = {}
+        for name, kw in (("sharded", {"device": cuda}),
+                         ("greedy", {"device": cuda}),
+                         ("sharded", {"backend": "numpy",
+                                      "coordinators": 4})):
+            k5.ROUND_LAUNCHES = 0
+            p = get_planner(name, **kw)
+            res = p.plan(req)
+            torch.cuda.synchronize()
+            assert k5.ROUND_LAUNCHES == (0 if "backend" in kw else 1)
+            plans[(name, kw.get("backend", "torch"))] = (
+                [(k, v.name, s) for k, (v, s) in res.assignment.items()],
+                res.unplaced, res.objective)
+        assert len(set(map(repr, plans.values()))) == 1, plans.keys()
 
 
 @pytest.mark.cuda

@@ -1,9 +1,8 @@
 """The port's experiment layer (``repro_torch.experiment``, ``python -m
 repro_torch``) — a mirror of tests/test_experiment.py's simulator-side
 tests on the CPU (``device="cpu"``), plus the port's own rules: the spec
-adds ``device`` and defaults ``planner_backend`` to "torch", the CLI
-runs on the card unless ``--device cpu`` is given, and only the greedy
-planner resolves. The sim backend's deterministic fingerprint must equal
+adds ``device`` and defaults ``planner_backend`` to "torch", and the CLI
+runs on the card unless ``--device cpu`` is given. The sim backend's deterministic fingerprint must equal
 the JAX package's on the same spec.
 """
 
@@ -118,6 +117,37 @@ def test_sim_fingerprint_equals_jax(scenario, planner_backend):
     assert ours.to_row().keys() == theirs.to_row().keys()
 
 
+NEW_KNOBS = {
+    "tp2": dict(tp_degree=2, scenario="tp-shard-storm"),
+    "tp2-degrade": dict(tp_degree=2, shard_policy="degrade",
+                        scenario="tp-shard-storm"),
+    "coordinators2": dict(planner="sharded", planner_coordinators=2),
+    "autopilot": dict(autopilot=True, scenario="chaos"),
+    "locality": dict(planner="locality", storage="edge",
+                     scheduler="criticality"),
+    "all": dict(tp_degree=2, planner="locality", planner_coordinators=2,
+                autopilot=True, scenario="tp-shard-storm"),
+}
+
+
+@pytest.mark.parametrize("planner_backend", ["torch", "numpy"])
+@pytest.mark.parametrize("case", list(NEW_KNOBS))
+def test_sim_new_knobs_fingerprint_equals_jax(case, planner_backend):
+    """The knobs this slice opens on the sim backend (tp_degree, shard
+    policy, planner_coordinators, autopilot, the other planners) give
+    the JAX package's fingerprint and shard summary."""
+    kw = dict(TINY, **NEW_KNOBS[case])
+    ours = run_experiment(ExperimentSpec(planner_backend=planner_backend,
+                                         **kw))
+    theirs = run_jax(JaxSpec(**_no_device(kw)))
+    assert ours.fingerprint() == theirs.fingerprint()
+    assert ours.extras.get("shard") == theirs.extras.get("shard")
+    assert ("shard" in ours.extras) == (kw.get("tp_degree", 1) > 1)
+    stats = ours.extras["planner"]
+    assert stats["backend"] == planner_backend
+    assert stats["coordinators"] == kw.get("planner_coordinators", 0)
+
+
 def test_scenario_builder_hook():
     res = run_experiment(ExperimentSpec(
         scenario="primary-kill",
@@ -163,8 +193,13 @@ def test_storage_and_scheduler_fields_reach_backend():
 
 
 def test_unported_planner_raises():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        run_experiment(ExperimentSpec(planner="locality", **TINY))
+    """Every planner of the JAX package now resolves (the locality one on
+    the sim backend, equal to JAX's); an unknown name still raises."""
+    got = run_experiment(ExperimentSpec(planner="locality", **TINY))
+    want = run_jax(JaxSpec(planner="locality", **_no_device(TINY)))
+    assert got.fingerprint() == want.fingerprint()
+    with pytest.raises(KeyError, match="unknown planner"):
+        run_experiment(ExperimentSpec(planner="nope", **TINY))
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +211,27 @@ def test_cli_list(capsys):
     out = capsys.readouterr().out
     assert "sim" in out and "testbed" in out and "single-server" in out
     planners = [ln for ln in out.splitlines() if ln.startswith("planners:")]
-    assert planners == ["planners:  greedy"]
+    assert planners == ["planners:  greedy, ilp, legacy-greedy, "
+                        "load-aware, locality, sharded"]
+
+
+def test_cli_new_flags_parse_and_roundtrip():
+    """--autopilot, --planner-coordinators, --tp-degree and
+    --shard-policy reach the spec, which survives to_dict/from_dict."""
+    from repro_torch.experiment.cli import _build_parser, _spec_from_args
+    args = _build_parser().parse_args([
+        "run", "--autopilot", "--planner", "sharded",
+        "--planner-coordinators", "3", "--tp-degree", "2",
+        "--shard-policy", "reshard", "--device", "cpu"])
+    spec = _spec_from_args(args)
+    assert (spec.autopilot, spec.planner_coordinators, spec.tp_degree,
+            spec.shard_policy) == (True, 3, 2, "reshard")
+    assert ExperimentSpec.from_dict(spec.to_dict()) == spec
+    plain = _spec_from_args(_build_parser().parse_args(["run"]))
+    assert (plain.autopilot, plain.planner_coordinators, plain.tp_degree,
+            plain.shard_policy) == (False, 0, 1, "auto")
+    with pytest.raises(SystemExit):
+        _build_parser().parse_args(["run", "--shard-policy", "nope"])
 
 
 def test_cli_run_smoke_json(capsys):

@@ -649,7 +649,9 @@ def test_planner_state_and_cluster_copies_match_originals():
 
 def test_planner_registry_and_validation():
     get_planner = tplanner.get_planner
-    assert tplanner.available_planners() == ("greedy",)
+    assert tplanner.available_planners() == (
+        "greedy", "ilp", "legacy-greedy", "load-aware", "locality",
+        "sharded")
     assert get_planner("greedy", device="cpu").stats["backend"] == "torch"
     assert get_planner("greedy", backend="numpy").stats["backend"] \
         == "numpy"
@@ -660,10 +662,14 @@ def test_planner_registry_and_validation():
         get_planner("greedy", backend="tpu")
     with pytest.raises(ValueError, match="'torch'"):
         get_planner("greedy", backend="jax")
-    for name in ("legacy-greedy", "ilp", "load-aware", "locality",
-                 "sharded"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            get_planner(name)
+    for name in ("legacy-greedy", "ilp", "load-aware", "locality"):
+        assert get_planner(name).name == name
+    p = get_planner("sharded", device="cpu", coordinators=2)
+    assert p.stats == {"backend": "torch", "coordinators": 2,
+                       "torch_rounds": 0, "sharded_rounds": 0,
+                       "fallback_dense": 0}
+    with pytest.raises(ValueError, match="'torch'"):
+        get_planner("sharded", backend="jax")
     with pytest.raises(KeyError, match="unknown planner"):
         get_planner("nope")
     if not torch.cuda.is_available():
@@ -672,14 +678,17 @@ def test_planner_registry_and_validation():
         with pytest.raises(RuntimeError, match="CUDA"):
             get_planner("greedy", backend="torch")
         with pytest.raises(RuntimeError, match="CUDA"):
+            get_planner("sharded")
+        with pytest.raises(RuntimeError, match="CUDA"):
             plan_greedy_torch([], state=None,
                               cluster=tcluster.make_cluster(1, 2))
 
 
 def test_torch_planner_counts_rounds_and_latency_fallback():
     """The greedy planner counts its rounds per backend; a request with a
-    ``latency_fn`` plans on numpy only, and the torch backend refuses it
-    (naming its ROADMAP item) instead of planning on the host."""
+    ``latency_fn`` plans on the torch backend too (its mask gates the
+    round, no host fallback), equal to numpy's latency plan and the JAX
+    package's."""
     cl_t, apps_t, kw = _instance("torch", 3)
     cl_j, apps_j, _ = _instance("jax", 3)
     planner = tplanner.get_planner("greedy", backend="torch", device="cpu")
@@ -692,16 +701,18 @@ def test_torch_planner_counts_rounds_and_latency_fallback():
     ref = jvec.plan_greedy(apps_j, cl_j, **kw)
     assert _norm(res) == _norm(ref) and res.objective == ref.objective
     req.latency_fn = lambda app, v, srv: 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        planner.plan(req)
-    assert planner.stats == {"backend": "torch", "torch_rounds": 1,
+    req.state = tstate.PlannerState(cl_t, subscribe=False)
+    res_lat = planner.plan(req)
+    ref_lat = jvec.plan_greedy(apps_j, cl_j, latency_fn=req.latency_fn,
+                               **kw)
+    assert _norm(res_lat) == _norm(ref_lat)
+    assert res_lat.objective == ref_lat.objective
+    assert planner.stats == {"backend": "torch", "torch_rounds": 2,
                              "numpy_rounds": 0}
     oracle = tplanner.get_planner("greedy", backend="numpy")
     st_np = tstate.PlannerState(cl_t, subscribe=False)
     req.state = st_np
     res_np = oracle.plan(req)
-    ref_lat = jvec.plan_greedy(apps_j, cl_j, latency_fn=req.latency_fn,
-                               **kw)
     assert _norm(res_np) == _norm(ref_lat)
     assert oracle.stats == {"backend": "numpy", "torch_rounds": 0,
                             "numpy_rounds": 1}

@@ -61,8 +61,9 @@ def test_inject_failure_matches_jax(backend):
     stats = sim_t.controller.planner_stats()
     assert stats["backend"] == backend
     assert stats[f"{backend}_rounds"] > 0
-    assert set(stats) == {"name", "backend", "torch_rounds",
-                          "numpy_rounds"}
+    assert set(stats) == {"name", "backend", "coordinators",
+                          "torch_rounds", "numpy_rounds"}
+    assert stats["coordinators"] == 0
 
 
 def _scenario(sim_cls, cfg_cls, name, **kw):
@@ -99,6 +100,9 @@ def test_named_scenarios_match_jax(name, backend):
 
 
 def test_torch_backend_needs_a_card_and_cuts_raise():
+    """The torch backend is the default and needs a card unless the CPU
+    is asked for; the planes the port's first simulator left out (the
+    autopilot, the shard plane, the other planners) build and run."""
     assert SimConfig().planner_backend == "torch"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -107,10 +111,17 @@ def test_torch_backend_needs_a_card_and_cuts_raise():
             Simulation(SimConfig(planner_backend="torch"))
     with pytest.raises(ValueError, match="'torch'"):
         Simulation(SimConfig(planner_backend="jax"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(SimConfig(autopilot=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(SimConfig(tp_degree=2))
-    for planner in ("ilp", "sharded", "load-aware"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            Simulation(SimConfig(planner=planner))
+    small = dict(n_sites=2, servers_per_site=3, seed=0,
+                 planner_device="cpu")
+    on = Simulation(SimConfig(autopilot=True, **small))
+    assert on.controller.autopilot is not None
+    assert on.controller.metrics_feed is not None
+    tp = Simulation(SimConfig(tp_degree=2, **small)).setup()
+    assert tp.shards is not None and tp.shards.groups
+    assert tp.shard_summary() is not None
+    for planner in ("ilp", "sharded", "load-aware", "locality",
+                    "legacy-greedy"):
+        sim = Simulation(SimConfig(planner=planner, **small))
+        assert sim.controller.planner.name == planner
+    with pytest.raises(KeyError, match="unknown planner"):
+        Simulation(SimConfig(planner="nope", **small))

@@ -104,16 +104,22 @@ def test_testbed_rejects_profile_only_apps():
 
 
 def test_unported_planes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The testbed's shard plane (ROADMAP Queue 1, TP shard) still raises,
+    and the testbed refuses the autopilot as the JAX one does; the sim
+    backend runs the shard plane, the autopilot and sharded rounds with
+    coordinators."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.*TP shard"):
         MiniTestbed(tp_degree=2, device="cpu")
-    for backend in ("sim", "testbed"):
-        for kw in ({"tp_degree": 2}, {"planner_coordinators": 2}):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                run_experiment(ExperimentSpec(backend=backend, device="cpu",
-                                              **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_experiment(ExperimentSpec(backend="sim", device="cpu",
-                                      autopilot=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP.*TP shard"):
+        run_experiment(ExperimentSpec(backend="testbed", device="cpu",
+                                      tp_degree=2))
+    for kw in ({"tp_degree": 2}, {"planner_coordinators": 2,
+                                  "planner": "sharded"},
+               {"autopilot": True}):
+        spec = ExperimentSpec.smoke("sim").with_(device="cpu", **kw)
+        res = run_experiment(spec)
+        assert res.overall["recovery_rate"] > 0
+        assert ("shard" in res.extras) == ("tp_degree" in kw)
     with pytest.raises(ValueError, match="autopilot"):
         run_experiment(ExperimentSpec(backend="testbed", device="cpu",
                                       autopilot=True))
