@@ -16,9 +16,12 @@ and prints no result):
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
    tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
    and K4 (WKV-6, f32 5e-4, bf16 2e-2) on the sweeps of
-   tests/test_kernels.py, and each at the shapes of every ladder rung that
-   phases 4 and 6 serve (heads, KV heads, head_dim and window of each
-   attention rung, one prompt where recurrentgemma-2b's window binds; the
+   tests/test_kernels.py (K1's with non-causal rows where Sq != Skv:
+   whisper's cross attention at Sq = 1 and 64 against 1500 frames, and a
+   ragged 33 x 77; K2's with a group of 7, arctic-480b's), and each at the
+   shapes of every ladder rung that phases 4 and 6 serve (heads, KV heads,
+   head_dim and window of each attention rung, one prompt where the
+   window of recurrentgemma-2b and of gemma3-27b binds; the
    LRU width and the WKV heads of each recurrent rung; from a nonzero
    state), the testbed's smoke rungs (head_dim 16) in f32. K4 has two
    routes, the chunked tensor-core kernels of a prefill (S > 1) and the
@@ -35,7 +38,12 @@ and prints no result):
    standalone path. The main-path shapes are timed in bf16
    (the smoke rungs in f32) beside the plain version, the bound, and, for
    K1/K2, PyTorch's ``scaled_dot_product_attention`` (a yardstick the
-   port never calls); K4's prefill rows also with a cold L2.
+   port never calls); K4's prefill rows also with a cold L2. The :full
+   and :w050 rungs of qwen1.5-4b (G = 1), gemma3-27b (window 1024),
+   llava-next-mistral-7b (576 patches + 64 tokens) and arctic-480b
+   (G = 7), and whisper-medium's encoder (1500 frames, non-causal), its
+   decoder's causal prefill and its cross attention at a prefill and a
+   decode step (K1) and its self attention at a decode step (K2).
    K6 (the weight-only int8 matmul, which no model calls, as in the JAX
    package) on the sweep of tests/test_kernels.py:102-104 in f32 and bf16,
    on its split-K and one-range tensor-core routes at reduced widths
@@ -48,12 +56,22 @@ and prints no result):
    (2 layers), recurrentgemma-2b (one (rglru, rglru, local) cycle plus an
    (rglru, rglru) tail, a 2100-token prompt so the local layer's window
    binds and its ring buffer wraps), rwkv6-3b (2 layers, 250 tokens),
-   qwen3-32b (2 layers, qk_norm) and qwen3-moe-30b-a3b (2 layers, 128
-   experts top-8), all at full width, prefill and three decode steps
+   qwen3-32b (2 layers, qk_norm), qwen3-moe-30b-a3b (2 layers, 128
+   experts top-8), qwen1.5-4b (2 layers, MHA), gemma3-27b (one 6-layer
+   cycle, an 1100-token prompt so the window of 1024 binds and its ring
+   wraps), llava-next-mistral-7b (2 layers, 576 seeded patch embeddings
+   + 64 tokens), whisper-medium (4 + 4 layers, 1500 seeded frames, a
+   64-token prompt) and arctic-480b (1 layer of 128 experts: its fp32
+   layer does not fit the card twice or the host beside it, so its
+   reference is the model's plain attention path on the card on the same
+   params), all at full width, prefill and three decode steps
    (recurrentgemma-2b's through K3's gated route only);
 4. serve and fail over, for each of qwen2.5-3b, recurrentgemma-2b,
-   rwkv6-3b and qwen3-32b (32 of its 64 layers: two full-width copies do
-   not fit 80 GB at full depth) in turn: worker A serves the ladder's
+   rwkv6-3b, qwen3-32b (32 of its 64 layers: two full-width copies do
+   not fit 80 GB at full depth), qwen1.5-4b, gemma3-27b (the ladder's 60
+   layers), llava-next-mistral-7b (text prompts, as the engine serves
+   it) and arctic-480b (2 of its 35 layers) in turn: worker A serves the
+   ladder's
    ``:full`` rung (bf16) to
    4 requests, its tokens are held against the model's own prefill/decode,
    a fifth request on a reused slot against a fresh engine, A is killed,
@@ -68,6 +86,14 @@ and prints no result):
    recurrentgemma-2b also with its RG-LRU scan unfused (the ``_gates``
    tail in PyTorch, then K3's (a, b) route), as it ran before the gated
    route. Each arch is unloaded before the next one loads;
+   (w) whisper-medium at full width and depth (24 + 24 layers, bf16),
+   which the engine does not serve (its requests need frame embeddings),
+   through the model's entry points: a 1500-frame encode + 64-token
+   prefill into each of 4 slots and decode steps over them, K1 and K2
+   launches counted and held to the path, the cross K/V the prefill
+   cached equal to ``_cross_kv`` recomputed, the prefill and the 4-slot
+   decode step timed (host wall, CUDA-graph device time, device kernels
+   a call);
 5. the simulator's failover planning (the greedy planner's ``torch``
    backend, which plans each round in one launch of K5's round kernel,
    the masked argmax inline): the standalone masked argmax (the TPU
@@ -111,7 +137,11 @@ and prints no result):
    layers) whose qwen3-32b primary is killed: that app recovers and its
    clients are served after the kill; it prints the recovered variant,
    detection, client downtime, the measured load seconds, the plan wall
-   and the peak memory allocated;
+   and the peak memory allocated; (c) (a)'s spec with the four
+   decoder-only archs outside the default list (qwen1.5-4b, gemma3-27b,
+   llava-next-mistral-7b, arctic-480b) on the testbed and on the sim:
+   equal failover choices, no load error, K1, K2 and the K5 round kernel
+   launched during the testbed run;
 7. the rest of the planning and protection plane, in this process from
    fixed seeds, K5's round-kernel counters zeroed just before and read
    just after each planning run: (a) 20 random instances per state dtype
@@ -192,6 +222,9 @@ FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
     (1, 33, 33, 2, 2, 128, True, 8),
     (2, 77, 77, 16, 2, 128, True, 0),       # ragged, tests/test_torch_cuda
     (1, 150, 150, 4, 1, 256, True, 0),
+    (2, 1, 1500, 16, 16, 64, False, 0),     # Sq != Skv, non-causal:
+    (1, 64, 1500, 16, 16, 64, False, 0),    # whisper's cross attention
+    (2, 33, 77, 8, 2, 128, False, 0),       # and a ragged pair
 ]
 DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (3, 8, 2, 64, 200, 0),
@@ -201,6 +234,7 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (4, 5, 1, 256, 512, 100),               # tests/test_torch_cuda.py
     (4, 16, 2, 128, 512, 0),
     (2, 32, 1, 64, 700, 0),
+    (2, 56, 8, 128, 300, 0),                # G = 7, arctic-480b's
 ]
 SCAN_SWEEP = [(2, 100, 256), (1, 64, 128), (3, 17, 256)]    # :64-68
 # K3's extra rows (B, S, W): prompts that are no multiple of a chunk
@@ -214,17 +248,36 @@ WKV_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8)]  # :82-86
 RUNGS = {"qwen2.5-3b": ("full", "w075", "w050"),
          "recurrentgemma-2b": ("full", "w050"),
          "rwkv6-3b": ("full", "w050"),
-         "qwen3-32b": ("full", "w050")}
+         "qwen3-32b": ("full", "w050"),
+         "qwen1.5-4b": ("full", "w050"),
+         "gemma3-27b": ("full", "w050"),
+         "llava-next-mistral-7b": ("full", "w050"),
+         "arctic-480b": ("full", "w050")}
 PREFILL_LENS = (128, 256, 512)
+# the archs beyond the testbed's five: their K1 rows are timed at one
+# prompt of 256 tokens (a prompt past the window where one binds),
+# llava's also at its 576 patch embeddings + 64 tokens
+NEW_ARCHS = ("qwen1.5-4b", "gemma3-27b", "llava-next-mistral-7b",
+             "arctic-480b")
+NEW_PREFILL_LENS = {"llava-next-mistral-7b": (256, 640)}
+# whisper-medium's encoder-decoder path (phase 4 (w)): 1500 frames, a
+# 64-token prompt into each of the 4 slots, then decode steps
+WHISPER_RUNGS = ("full", "w050")
+WHISPER_FRAMES, WHISPER_PROMPT, WHISPER_STEPS = 1500, 64, 8
 RAGGED_LEN = 333            # K1 rows whose prompt ends inside a query tile
 RAGGED_TAGS = ("qwen2.5-3b full", "recurrentgemma-2b full")
 BINDING_LEN = 2100          # a prompt past recurrentgemma-2b's window 2048
 SLOTS, MAX_LEN, NEW_TOKENS = 4, 512, 32
 DECODE_LENS = [97, 161, 288, 512]
-ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-32b")
+ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b", "qwen3-32b") \
+    + NEW_ARCHS
 # phase 4's depth cuts: qwen3-32b's :full at 64 layers is ~65.5 GB of bf16
-# weights and its :w050 ~17 GB more, which do not fit 80 GB together
-SERVE_LAYERS = {"qwen3-32b": 32}
+# weights and its :w050 ~17 GB more, which do not fit 80 GB together;
+# arctic-480b's layer holds 128 x 3 x 7168 x 4864 expert weights, ~26.8
+# GB of bf16, so 2 of its 35 layers (~55.6 GB, :w050 ~7.4 GB more).
+# gemma3-27b runs at the ladder's 60 layers (its 62 rounded to whole
+# 6-layer cycles), ~52.4 GB with :w050 ~13.8 GB more
+SERVE_LAYERS = {"qwen3-32b": 32, "arctic-480b": 2}
 # phase 6: tests/test_experiment.py:185's testbed spec with the default
 # arch list, and the full-width testbed's depth of qwen3-32b (the card
 # holds up to four copies of the largest rung at once: primary, warm
@@ -551,14 +604,27 @@ def rung_shapes():
     return out
 
 
+def whisper_rung_shapes():
+    """(tag, (H, KVH, hd)) of whisper-medium's rungs in ``WHISPER_RUNGS``."""
+    from repro_torch import configs
+    from repro_torch.core.variants import build_ladder
+
+    ladder = {v.name: v.config for v in
+              build_ladder(configs.get_config("whisper-medium"))}
+    return [(f"whisper-medium {r}", (c.num_heads, c.num_kv_heads,
+                                     c.head_dim))
+            for r in WHISPER_RUNGS for c in [ladder[f"whisper-medium:{r}"]]]
+
+
 def testbed_rung_shapes():
     """Each serving kernel's distinct shapes on every rung phase 6 can
     load: ``(smoke, full)``, each ``{kernel: sorted args}`` — the smoke
-    ladders of the five testbed archs (f32, head_dim 16) and the
-    full-width ladders of phase 6 (b). Rungs whose query heads do not
-    divide among their KV heads (ROADMAP R8: the smoke :w075 of qwen2.5-3b
-    and qwen3-moe-30b-a3b) are left out: no model of either package
-    builds them, so no worker loads them."""
+    ladders (f32, head_dim 16) of the five testbed archs that (a) serves
+    and of the four that (c) serves, and the full-width ladders of phase
+    6 (b). Rungs whose query heads do not divide among their KV heads
+    (ROADMAP R8: the smoke :w075 of qwen2.5-3b, qwen3-moe-30b-a3b,
+    gemma3-27b, llava-next-mistral-7b and arctic-480b) are left out: no
+    model of either package builds them, so no worker loads them."""
     from repro_torch import configs
     from repro_torch.core.variants import build_ladder
     from repro_torch.experiment.workload import TESTBED_ARCHS, testbed_ladder
@@ -574,7 +640,7 @@ def testbed_rung_shapes():
                     out[k].add(args)
         return {k: sorted(v) for k, v in out.items()}
 
-    smoke = collect(testbed_ladder(a) for a in TESTBED_ARCHS)
+    smoke = collect(testbed_ladder(a) for a in (*TESTBED_ARCHS, *NEW_ARCHS))
     full = collect(build_ladder(configs.get_config(a)) for a in
                    FULL_TESTBED_LAYERS)
     return smoke, full
@@ -654,6 +720,18 @@ def phase_kernels():
                    for S in (256,) + ((BINDING_LEN,) if window else ())]
     decode_rungs = [(SLOTS, H, KVH, hd, MAX_LEN, 0)
                     for H, KVH, hd, _w in attn]
+    # whisper's encoder, its cross attention at a prefill and at a decode
+    # step (non-causal, Sq != Skv) and its decoder's causal prefill
+    whisper = whisper_rung_shapes()
+    whisper_flash = [
+        (B, Sq, Skv, H, KVH, hd, causal, 0) for _, (H, KVH, hd) in whisper
+        for B, Sq, Skv, causal in (
+            (1, WHISPER_FRAMES, WHISPER_FRAMES, False),
+            (1, WHISPER_PROMPT, WHISPER_FRAMES, False),
+            (SLOTS, 1, WHISPER_FRAMES, False),
+            (1, WHISPER_PROMPT, WHISPER_PROMPT, True))]
+    decode_rungs += [(SLOTS, H, KVH, hd, MAX_LEN, 0)
+                     for _, (H, KVH, hd) in whisper]
     wkv_rungs = [(B, NH, S, hs) for _, (NH, hs) in shapes["rwkv6_scan"]
                  for B, S in ((1, 256), (SLOTS, 1))]
     scan_rungs = [(B, S, W) for _, W in shapes["rglru_scan"]
@@ -681,7 +759,8 @@ def phase_kernels():
     for name, dt in dts.items():
         smoke_only = name == "float32"
         for B, Sq, Skv, H, KVH, hd, causal, window in FLASH_SWEEP + \
-                flash_rungs + (smoke_flash if smoke_only else []):
+                flash_rungs + whisper_flash + (smoke_flash if smoke_only
+                                               else []):
             q, k, v = (rnd((B, Sq, H, hd), dt), rnd((B, Skv, KVH, hd), dt),
                        rnd((B, Skv, KVH, hd), dt))
             check("flash_attention", err(
@@ -736,33 +815,39 @@ def phase_kernels():
     bf16 = torch.bfloat16
     rows = {k: {} for k in KERNELS}
 
-    def flash_row(tag, H, KVH, hd, S, window, dt=bf16, B=1):
-        q, k, v = (rnd((B, S, H, hd), dt), rnd((B, S, KVH, hd), dt),
-                   rnd((B, S, KVH, hd), dt))
-        e = err(fa_ops.flash_attention(q, k, v, causal=True, window=window),
-                flash_plain(q, k, v, True, window))
+    def flash_row(tag, H, KVH, hd, S, window, dt=bf16, B=1, Skv=None,
+                  causal=True):
+        Skv = Skv or S
+        q, k, v = (rnd((B, S, H, hd), dt), rnd((B, Skv, KVH, hd), dt),
+                   rnd((B, Skv, KVH, hd), dt))
+        e = err(fa_ops.flash_attention(q, k, v, causal=causal,
+                                       window=window),
+                flash_plain(q, k, v, causal, window))
         dname = str(dt).replace("torch.", "")
         if not e < ATOL[dname]:
             raise AssertionError(f"flash_attention {tag}: {e}")
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        pos = torch.arange(S, device=dev)
-        band = pos[:, None] >= pos[None, :]
-        if window:
-            band &= pos[None, :] > pos[:, None] - window
-        # score pairs this causal (and windowed) attention needs
-        pairs = int(band.sum())
-        if window and window < S:
-            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
-                                    vt, attn_mask=band, enable_gqa=True)
+        lib = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                enable_gqa=True)
+        if causal:
+            pos = torch.arange(S, device=dev)
+            band = pos[:, None] >= pos[None, :]
+            if window:
+                band &= pos[None, :] > pos[:, None] - window
+            # score pairs this causal (and windowed) attention needs
+            pairs = int(band.sum())
+            lib = functools.partial(lib, **(
+                {"attn_mask": band} if window and window < S
+                else {"is_causal": True}))
         else:
-            lib = functools.partial(F.scaled_dot_product_attention, qt, kt,
-                                    vt, is_causal=True, enable_gqa=True)
+            pairs = S * Skv
         rows["flash_attention"][tag] = timed_row(
-            f"q ({B},{S},{H},{hd}) k/v ({B},{S},{KVH},{hd}) {dname} causal"
+            f"q ({B},{S},{H},{hd}) k/v ({B},{Skv},{KVH},{hd}) {dname} "
+            + ("causal" if causal else "non-causal")
             + (f" window {window}" if window else ""), e,
-            functools.partial(fa_ops.flash_attention, q, k, v, causal=True,
+            functools.partial(fa_ops.flash_attention, q, k, v, causal=causal,
                               window=window),
-            lambda: flash_plain(q, k, v, True, window), lib,
+            lambda: flash_plain(q, k, v, causal, window), lib,
             nbytes(q, k, v, q), 4 * hd * H * pairs * B, peak_for(dt))
 
     def decode_row(tag, H, KVH, hd, dt=bf16, B=SLOTS, Smax=MAX_LEN,
@@ -857,8 +942,20 @@ def phase_kernels():
                                    for k, t, _c in device_kernels(kern, 20)}
 
     for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
-        for S in PREFILL_LENS + ((BINDING_LEN,) if window else ()):
+        arch = tag.split()[0]
+        lens = (NEW_PREFILL_LENS.get(arch, (256,)) if arch in NEW_ARCHS
+                else PREFILL_LENS)
+        for S in lens + ((BINDING_LEN,) if window else ()):
             flash_row(f"{tag} S={S}", H, KVH, hd, S, window)
+    for tag, (H, KVH, hd) in whisper:
+        flash_row(f"{tag} encoder T={WHISPER_FRAMES}", H, KVH, hd,
+                  WHISPER_FRAMES, 0, causal=False)
+        flash_row(f"{tag} decoder S={WHISPER_PROMPT}", H, KVH, hd,
+                  WHISPER_PROMPT, 0)
+        flash_row(f"{tag} cross S={WHISPER_PROMPT}", H, KVH, hd,
+                  WHISPER_PROMPT, 0, Skv=WHISPER_FRAMES, causal=False)
+        flash_row(f"{tag} cross decode", H, KVH, hd, 1, 0, B=SLOTS,
+                  Skv=WHISPER_FRAMES, causal=False)
     # a prompt that is no multiple of K1's 64-row query tile, at head_dim
     # 128 and 256
     for tag, (H, KVH, hd, window) in shapes["flash_attention"]:
@@ -866,6 +963,8 @@ def phase_kernels():
             flash_row(f"{tag} S={RAGGED_LEN} ragged", H, KVH, hd, RAGGED_LEN,
                       window)
     for tag, (H, KVH, hd, _w) in shapes["decode_attention"]:
+        decode_row(f"{tag} decode", H, KVH, hd)
+    for tag, (H, KVH, hd) in whisper:
         decode_row(f"{tag} decode", H, KVH, hd)
     r = rows["decode_attention"]["qwen2.5-3b full decode"]
     log(f"  K2 split-KV at qwen2.5-3b :full decode (B={SLOTS}, Smax="
@@ -1133,43 +1232,76 @@ def phase_int8():
 # Phase 3: fp32 model parity, card (kernels) vs CPU (plain path)
 # ---------------------------------------------------------------------------
 
-def parity(arch, num_layers, prompt_len, max_len):
+@contextlib.contextmanager
+def plain_attention():
+    """The model's attention on its plain path (``flash_attention_plain``,
+    ``decode_attention_dense``) on any device, for a reference computation
+    on the card; never on a counted path."""
+    from repro_torch.models import layers as L
+
+    fa, dec = L.flash_attention, L.decode_attention
+    L.flash_attention = L.flash_attention_plain
+    L.decode_attention = L.decode_attention_dense
+    try:
+        yield
+    finally:
+        L.flash_attention, L.decode_attention = fa, dec
+
+
+def parity(arch, num_layers, prompt_len, max_len, *, extra_len=0,
+           ref_on_card=False, **cfg_kw):
     """Prefill ``prompt_len`` tokens and decode three, on the card and on
-    the CPU from the same fp32 params; returns the worst logits error."""
+    the CPU from the same fp32 params; returns the worst logits error.
+    ``extra_len`` seeded embeddings go before the prompt (llava's patches)
+    or to the encoder (whisper's frames). With ``ref_on_card`` the
+    reference is the plain attention path on the card, on the same
+    params."""
     from repro_torch import bridge, configs
     from repro_torch.device import generator_for
     from repro_torch.models import model as MDL
 
     cfg = configs.get_config(arch).replace(
         num_layers=num_layers, param_dtype="float32",
-        activation_dtype="float32")
-    cuda, cpu = DEV, torch.device("cpu")
+        activation_dtype="float32", **cfg_kw)
+    cuda = DEV
+    ref = cuda if ref_on_card else torch.device("cpu")
     params = MDL.init_params(generator_for(cuda, SEED), cfg, device=cuda)
-    params_cpu = bridge.params_from_jax(bridge.params_to_numpy(params), cpu)
-    toks = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (2, prompt_len)).astype(np.int32)
+    params_ref = params if ref_on_card else bridge.params_from_jax(
+        bridge.params_to_numpy(params), ref)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, prompt_len)).astype(np.int32))
+    extra = None if not extra_len else torch.from_numpy(
+        rng.standard_normal((2, extra_len, cfg.d_model)).astype(np.float32))
     cache_g = MDL.init_cache(cfg, 2, max_len, device=cuda)
-    cache_c = MDL.init_cache(cfg, 2, max_len, device=cpu)
+    cache_c = MDL.init_cache(cfg, 2, max_len, device=ref)
+    on_ref = plain_attention if ref_on_card else contextlib.nullcontext
+    where = "plain path on the card" if ref_on_card else "cpu"
     worst = 0.0
     with torch.inference_mode():
-        lg, _ = MDL.prefill(params, cfg, torch.from_numpy(toks).to(cuda),
-                            cache_g)
-        lc, _ = MDL.prefill(params_cpu, cfg, torch.from_numpy(toks), cache_c)
+        lg, _ = MDL.prefill(params, cfg, toks.to(cuda), cache_g,
+                            None if extra is None else extra.to(cuda))
+        with on_ref():
+            lc, _ = MDL.prefill(params_ref, cfg, toks.to(ref), cache_c,
+                                None if extra is None else extra.to(ref))
+        lc = lc.cpu()
         for step in range(4):
             e = float((lg.cpu() - lc).abs().max())
             worst = max(worst, e)
             tg, tc = lg.argmax(-1).cpu(), lc.argmax(-1)
             log(f"  {arch} {'prefill' if step == 0 else f'decode {step}'}: "
                 f"logits max_abs_err {e:.3g}, greedy card {tg.tolist()} "
-                f"cpu {tc.tolist()}")
+                f"{where} {tc.tolist()}")
             if not e < LOGIT_ATOL or not torch.equal(tg, tc):
-                raise AssertionError(f"{arch}: card and CPU disagree")
+                raise AssertionError(f"{arch}: card and {where} disagree")
             if step == 3:
                 break
             lg, _ = MDL.decode_step(params, cfg, tg.to(cuda), cache_g)
-            lc, _ = MDL.decode_step(params_cpu, cfg, tc, cache_c)
+            with on_ref():
+                lc, _ = MDL.decode_step(params_ref, cfg, tc.to(ref), cache_c)
+            lc = lc.cpu()
     torch.cuda.synchronize()
-    del params, params_cpu, cache_g, cache_c
+    del params, params_ref, cache_g, cache_c
     gc.collect()
     torch.cuda.empty_cache()
     return worst
@@ -1198,6 +1330,18 @@ def phase_parity():
     out["qwen3-32b"] = parity("qwen3-32b", 2, 16, 32)
     # 2 x 16 tokens over 128 experts top-8: capacity 8 slots an expert
     out["qwen3-moe-30b-a3b"] = parity("qwen3-moe-30b-a3b", 2, 16, 32)
+    out["qwen1.5-4b"] = parity("qwen1.5-4b", 2, 16, 32)
+    # one (local x 5, global) cycle; 1100 > window 1024: banded on the
+    # CPU, windowed in K1, and the local layers' ring of 1024 slots wraps
+    # in the prefill and again in the decode steps
+    out["gemma3-27b"] = parity("gemma3-27b", 6, 1100, 1104)
+    out["llava-next-mistral-7b"] = parity(
+        "llava-next-mistral-7b", 2, 64, 576 + 68, extra_len=576)
+    out["whisper-medium"] = parity(
+        "whisper-medium", 8, 64, 68, extra_len=WHISPER_FRAMES,
+        num_encoder_layers=4, num_decoder_layers=4)
+    # one fp32 layer of 128 experts (~53 GiB) fits the card once
+    out["arctic-480b"] = parity("arctic-480b", 1, 16, 32, ref_on_card=True)
     return out
 
 
@@ -1264,25 +1408,12 @@ def fresh_engine_tokens(eng, prompt):
     return r.tokens
 
 
-def step_breakdown(MDL, eng, prompt_len=256, n=10):
-    """Where a serving step's time goes, on the engine's own params: the
-    host wall of an eager call (ending in a synchronize) against the device
-    time of the same call replayed from a CUDA graph. Decode runs over all
-    slots at ragged positions; prefill is one prompt of ``prompt_len``."""
-    cfg, dev = eng.cfg, eng.device
+def time_calls(calls, n=10):
+    """Per call of ``calls`` ({name: fn}): the host wall of an eager call
+    (ending in a synchronize) against the device time of the same call
+    replayed from a CUDA graph, medians of ``n``."""
     out = {}
     with torch.inference_mode():
-        cache = MDL.init_cache(cfg, SLOTS, MAX_LEN, device=dev)
-        cache["pos"].copy_(torch.tensor([97, 161, 288, 400]))
-        tok = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
-        sub = MDL.cache_take_slot(cache, 0)
-        sub["pos"] = torch.zeros((1,), dtype=torch.int32, device=dev)
-        prompt = torch.zeros((1, prompt_len), dtype=torch.int32, device=dev)
-        calls = {
-            "decode_step": functools.partial(MDL.decode_step, eng.params,
-                                             cfg, tok, cache),
-            f"prefill_{prompt_len}": functools.partial(
-                MDL.prefill, eng.params, cfg, prompt, sub)}
         for name, fn in calls.items():
             walls = []
             for _ in range(n):
@@ -1297,25 +1428,32 @@ def step_breakdown(MDL, eng, prompt_len=256, n=10):
     return out
 
 
-def device_profile(MDL, eng, prompt_len=256, n=5):
-    """Device time by kernel name (torch.profiler) over ``n`` decode steps
-    of all slots and ``n`` prefills of ``prompt_len`` tokens, per call, and
-    the device kernels and copies a call launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def serving_calls(MDL, eng, prompt_len=256):
+    """A decode step over all slots at ragged positions and a prefill of
+    one prompt of ``prompt_len`` into a zeroed slot, on the engine's own
+    params and a cache of its own."""
     cfg, dev = eng.cfg, eng.device
-    out = {}
     with torch.inference_mode():
         cache = MDL.init_cache(cfg, SLOTS, MAX_LEN, device=dev)
         cache["pos"].copy_(torch.tensor([97, 161, 288, 400]))
-        tok = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
-        prompt = torch.zeros((1, prompt_len), dtype=torch.int32, device=dev)
-        calls = {"decode_step": lambda: MDL.decode_step(eng.params, cfg, tok,
-                                                        cache),
-                 f"prefill_{prompt_len}": lambda: MDL.prefill(
-                     eng.params, cfg, prompt,
-                     MDL.cache_zero(MDL.cache_take_slot(cache, 0)))}
+    tok = torch.zeros((SLOTS,), dtype=torch.int32, device=dev)
+    prompt = torch.zeros((1, prompt_len), dtype=torch.int32, device=dev)
+    return {"decode_step": lambda: MDL.decode_step(eng.params, cfg, tok,
+                                                   cache),
+            f"prefill_{prompt_len}": lambda: MDL.prefill(
+                eng.params, cfg, prompt,
+                MDL.cache_zero(MDL.cache_take_slot(cache, 0)))}
+
+
+def profile_calls(calls, n=5):
+    """Device time by kernel name (torch.profiler) over ``n`` runs of each
+    of ``calls``, per call, and the device kernels and copies a call
+    launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with torch.inference_mode():
         for name, fn in calls.items():
             fn()
             torch.cuda.synchronize()
@@ -1463,9 +1601,10 @@ def phase_serve(arch):
                                  f"engine {fresh}")
         log(f"  slot reuse: a fifth request on a reused slot equals a fresh "
             f"engine's tokens ({len(fresh)} tokens)")
-        res["A_steps"] = step_breakdown(MDL, eng_a)
+        calls = serving_calls(MDL, eng_a)
+        res["A_steps"] = time_calls(calls)
         log(f"  A {full.name} step breakdown: {json.dumps(res['A_steps'])}")
-        res["A_profile"] = device_profile(MDL, eng_a)
+        res["A_profile"] = profile_calls(calls)
         for call, p in res["A_profile"].items():
             log(f"  A {full.name} {call} by kernel (torch.profiler, ms per "
                 f"call): total {p['device_ms']:.3f}, the port's kernels "
@@ -1476,8 +1615,8 @@ def phase_serve(arch):
             # the same calls with the RG-LRU scan unfused, as before K3's
             # gated route, on this card in this run
             with unfused_rglru():
-                res["A_steps_unfused"] = step_breakdown(MDL, eng_a)
-                res["A_profile_unfused"] = device_profile(MDL, eng_a)
+                res["A_steps_unfused"] = time_calls(calls)
+                res["A_profile_unfused"] = profile_calls(calls)
             for call, p in res["A_profile_unfused"].items():
                 st, su = res["A_steps"], res["A_steps_unfused"]
                 log(f"  A {full.name} {call}, the RG-LRU scan unfused: "
@@ -1527,6 +1666,100 @@ def phase_serve(arch):
         gc.collect()
         torch.cuda.empty_cache()
     return res, launches
+
+
+def phase_whisper():
+    """whisper-medium at full width and depth in bf16 through the model's
+    entry points: each of ``SLOTS`` slots gets a 1500-frame encode and a
+    64-token prefill, then ``WHISPER_STEPS`` decode steps run over all
+    slots; K1/K2 launches held to one per attention a call, the cached
+    cross K/V held to ``_cross_kv`` recomputed, then the prefill and the
+    decode step timed and profiled."""
+    from repro_torch import configs
+    from repro_torch.device import generator_for
+    from repro_torch.models import encdec
+    from repro_torch.models import model as MDL
+
+    cfg = configs.get_config("whisper-medium")
+    n_enc, n_dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+    if cfg.param_dtype != "bfloat16" or n_enc != 24 or n_dec != 24:
+        raise AssertionError(f"{cfg.name} is not at full depth in bf16")
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+        res["params"] = MDL.param_count(params)
+        rng = np.random.default_rng(SEED)
+        frames = [torch.from_numpy(rng.standard_normal(
+            (1, WHISPER_FRAMES, cfg.d_model)).astype(np.float32)).to(DEV)
+            for _ in range(SLOTS)]
+        prompts = [torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (1, WHISPER_PROMPT)).astype(np.int32)).to(DEV)
+            for _ in range(SLOTS)]
+        cache = MDL.init_cache(cfg, SLOTS, MAX_LEN, device=DEV)
+        reset_counts()
+        first = []
+        for s in range(SLOTS):
+            sub = MDL.cache_zero(MDL.cache_take_slot(cache, s))
+            logits, _ = MDL.prefill(params, cfg, prompts[s], sub, frames[s])
+            first.append(int(torch.argmax(logits[0])))
+        tok = torch.tensor(first, dtype=torch.int32, device=DEV)
+        for _ in range(WHISPER_STEPS):
+            logits, _ = MDL.decode_step(params, cfg, tok, cache)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("whisper decode logits not finite")
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        got = read_counts(("flash_attention", "decode_attention"))
+        want = {"flash_attention": SLOTS * (n_enc + 2 * n_dec)
+                + WHISPER_STEPS * n_dec,
+                "decode_attention": WHISPER_STEPS * n_dec}
+        log(f"  {SLOTS} prefills ({WHISPER_FRAMES} frames + "
+            f"{WHISPER_PROMPT} tokens) and {WHISPER_STEPS} decode steps "
+            f"over {SLOTS} slots: launches {json.dumps(got)}; positions "
+            f"{cache['pos'].tolist()}, logits {tuple(logits.shape)} finite")
+        if got != want:
+            raise AssertionError(f"whisper launches {got}, want {want} (K1 "
+                                 "per encoder layer, decoder self and cross "
+                                 "attention; K2 per decoder layer a step)")
+        if cache["pos"].tolist() != [WHISPER_PROMPT + WHISPER_STEPS] * SLOTS:
+            raise AssertionError(f"positions {cache['pos'].tolist()}")
+        enc = encdec.encode(params, cfg, frames[SLOTS - 1])
+        worst = 0.0
+        for i in range(n_dec):
+            kx, vx = encdec._cross_kv(encdec._layer(params["dec_layers"], i),
+                                      cfg, enc)
+            worst = max(worst, err(kx, cache["cross"]["k"][i, SLOTS - 1:]),
+                        err(vx, cache["cross"]["v"][i, SLOTS - 1:]))
+        res["cross_kv_max_abs_err"] = worst
+        log(f"  slot {SLOTS - 1}'s cached cross K/V against _cross_kv "
+            f"recomputed, {n_dec} layers: max_abs_err {worst:.3g}")
+        if not worst < ATOL["bfloat16"]:
+            raise AssertionError(f"cached cross K/V off by {worst}")
+        sub = MDL.cache_take_slot(cache, 0)
+        calls = {
+            f"encode_prefill_{WHISPER_PROMPT}": lambda: MDL.prefill(
+                params, cfg, prompts[0], MDL.cache_zero(sub), frames[0]),
+            "decode_step": lambda: MDL.decode_step(params, cfg, tok, cache)}
+    res["steps"] = time_calls(calls)
+    res["profile"] = profile_calls(calls)
+    for name in calls:
+        wall = res["steps"][f"{name}_wall_ms"]
+        devt = res["steps"][f"{name}_device_ms"]
+        p = res["profile"][name]
+        log(f"  {name} on whisper-medium:full: host wall {wall:.3f} ms, "
+            f"device {devt:.3f} ms, device idle share "
+            f"{1 - devt / wall:.3f}, device kernels a call "
+            f"{p['device_kernels']:.1f}; the port's kernels "
+            f"{p['port_kernels_ms']:.3f} of {p['device_ms']:.3f} profiled "
+            f"ms; top {json.dumps(p['top'])}")
+    res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  {res['params']} params; max_memory_allocated "
+        f"{res['max_memory_allocated_bytes'] / 2**30:.3f} GiB")
+    del params, cache, calls, sub
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, got
 
 
 # ---------------------------------------------------------------------------
@@ -2418,13 +2651,16 @@ def phase_plane(failover_inputs, greedy_records):
 # Phase 6: the live failover testbed through the entry points, on the card
 # ---------------------------------------------------------------------------
 
-def phase_testbed_smoke():
-    """tests/test_experiment.py:185's spec with the default arch list on
-    the port's testbed backend, then on its sim backend. Every kernel
-    counter is zeroed just before the testbed run and read just after."""
+def phase_testbed_smoke(archs=None, need=None):
+    """tests/test_experiment.py:185's spec with ``archs`` (the default
+    list when None) on the port's testbed backend, then on its sim
+    backend. Every kernel counter is zeroed just before the testbed run
+    and read just after; each route of ``need`` (every main-path route
+    when None) must have launched."""
     from repro_torch.experiment import ExperimentSpec, run_experiment
 
-    spec = ExperimentSpec(backend="testbed", **TESTBED_SPEC)
+    spec = ExperimentSpec(backend="testbed",
+                          **{**TESTBED_SPEC, "archs": archs})
     reset_counts()
     t0 = time.monotonic()
     tb = run_experiment(spec)
@@ -2445,7 +2681,8 @@ def phase_testbed_smoke():
            "load_errors": tb.extras["load_errors"],
            "refused_no_slot": tb.extras["refused_no_slot"], "wall_s": tb_wall,
            "launches": launches}
-    log("  " + json.dumps({"testbed_smoke": out}, default=str))
+    log("  " + json.dumps({"testbed_smoke": out, "archs": archs},
+                          default=str))
     if tb.recovery_by_app() != sim.recovery_by_app():
         raise AssertionError(f"testbed {tb.recovery_by_app()} != sim "
                              f"{sim.recovery_by_app()}")
@@ -2459,7 +2696,7 @@ def phase_testbed_smoke():
         raise AssertionError(f"client MTTR {t.client_mttr_avg}")
     if not all(st.ok > 0 for st in stats.values()):
         raise AssertionError(f"an app's clients got no answer: {stats}")
-    idle = [k for k in KERNELS if k not in STANDALONE + LATENCY_ONLY
+    idle = [k for k in need or KERNELS if k not in STANDALONE + LATENCY_ONLY
             and not launches[k]]
     if idle:
         raise AssertionError(f"{idle} never launched in the testbed run")
@@ -2701,6 +2938,11 @@ def main() -> int:
                 f"{devt:.3f} ms, device idle share {1 - devt / wall:.3f}, "
                 f"device kernels a call {n_kern:.1f}")
         log(f"  phase 4 {arch} took {time.monotonic() - t0:.1f} s")
+    log("phase 4 (w): whisper-medium's encoder-decoder path at full width")
+    t0 = time.monotonic()
+    whisper, whisper_launches = phase_whisper()
+    log("  " + json.dumps({"whisper": whisper}))
+    log(f"  phase 4 (w) took {time.monotonic() - t0:.1f} s")
 
     log("phase 5: the simulator's failover planning on the card (K5)")
     t0 = time.monotonic()
@@ -2718,6 +2960,14 @@ def main() -> int:
     t0 = time.monotonic()
     _, tb_full = phase_testbed_full()
     log(f"  phase 6 (b) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    # the four decoder-only archs beyond the testbed's five; the spec's
+    # plans load only their smoke :full rungs, none of the :w075 (3 query
+    # heads on 2 KV heads, R8)
+    _, tb_new = phase_testbed_smoke(
+        list(NEW_ARCHS), ("flash_attention", "decode_attention",
+                          "planner_round"))
+    log(f"  phase 6 (c) took {time.monotonic() - t0:.1f} s")
 
     log("phase 7: the planning and protection plane on the card")
     t0 = time.monotonic()
@@ -2741,8 +2991,14 @@ def main() -> int:
                        for tag, n in runs.items() if n.get(name)}
             if name == "planner_round":
                 by_path[f"sim {SIM_CELL['scenario']} torch"] = k5_launches
+            if name in whisper_launches:
+                by_path["whisper-medium:full (phase 4w)"] = \
+                    whisper_launches[name]
             by_path["testbed smoke (phase 6a)"] = tb_smoke[name]
             by_path["testbed full width (phase 6b)"] = tb_full[name]
+            if tb_new[name]:
+                by_path["testbed, qwen1.5/gemma3/llava/arctic (phase 6c)"] = \
+                    tb_new[name]
             by_path.update(plane_paths.get(name, {}))
         main_path = sum(by_path.values())
         if not main_path:

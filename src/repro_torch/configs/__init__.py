@@ -1,7 +1,8 @@
-"""Architecture config registry of the port.
+"""Architecture config registry of the port: ``--arch <id>`` resolution.
 
-Only the archs whose whole path is ported resolve. Every other arch of
-the JAX package raises KeyError naming the ROADMAP item that brings it.
+The same ten archs, in the same order, as ``repro/configs/__init__.py``;
+each module is a copy of the JAX package's with the port's
+``ModelConfig``.
 """
 
 from __future__ import annotations
@@ -12,29 +13,22 @@ from typing import List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
-    "qwen2.5-3b": "qwen2_5_3b",
-    "qwen3-32b": "qwen3_32b",
     "recurrentgemma-2b": "recurrentgemma_2b",
-    "rwkv6-3b": "rwkv6_3b",
+    "qwen3-32b": "qwen3_32b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "qwen2.5-3b": "qwen2_5_3b",
+    "gemma3-27b": "gemma3_27b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
-}
-
-# archs of the JAX package that the port does not serve yet
-_PENDING = {
-    "arctic-480b": "Queue 1, remaining archs",
-    "qwen1.5-4b": "Queue 1, remaining archs",
-    "gemma3-27b": "Queue 1, remaining archs",
-    "whisper-medium": "Queue 1, remaining archs",
-    "llava-next-mistral-7b": "Queue 1, remaining archs",
+    "arctic-480b": "arctic_480b",
+    "whisper-medium": "whisper_medium",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 ARCHS: List[str] = list(_MODULES)
 
 
 def _module(arch: str):
-    if arch in _PENDING:
-        raise KeyError(f"arch {arch!r} is not ported yet; see ROADMAP.md "
-                       f"{_PENDING[arch]}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

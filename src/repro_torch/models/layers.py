@@ -15,6 +15,7 @@ in the model dtype as JAX does.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -25,10 +26,45 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 NEG_INF = -1e30
 
 
+# a draw of more than DRAW_LIMIT elements is made in slices of about
+# DRAW_SLICE along the leading axis, so its fp32 scratch stays about a GiB
+# (arctic-480b's expert stacks are 4.5e9 elements a weight; every other
+# weight of the ten archs is drawn whole)
+DRAW_LIMIT, DRAW_SLICE = 1 << 31, 1 << 28
+
+
+class _DrawTarget(threading.local):
+    """Where ``_he`` puts its draws: None allocates each one; otherwise a
+    callable ``(shape, dtype) -> tensor`` that hands the tensor to draw
+    into (a meta tensor: no draw at all). ``model.init_params`` uses it to
+    draw a stacked layer's weights straight into its slice of the stack."""
+    fn = None
+
+
+DRAW_TARGET = _DrawTarget()
+
+
 def _he(gen, shape, scale, dtype, device):
     """Normal draw in fp32, scaled, then cast (as ``layers._he``)."""
-    x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * scale).to(dtype)
+    shape = tuple(shape)
+    out = None if DRAW_TARGET.fn is None else DRAW_TARGET.fn(shape, dtype)
+    if out is not None and out.device.type == "meta":
+        return out
+    n = math.prod(shape)
+    if n <= DRAW_LIMIT or len(shape) < 2:
+        x = torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        x = x.mul_(scale).to(dtype)
+        return x if out is None else out.copy_(x)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_SLICE // (n // shape[0]))
+    for r in range(0, shape[0], rows):
+        part = out[r:r + rows]
+        x = torch.randn(part.shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        part.copy_(x.mul_(scale))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -104,7 +140,9 @@ def init_attention(gen, cfg, device, dtype=None):
     return p
 
 
-def _qkv(params, cfg, x, positions):
+def _qkv(params, cfg, x, positions, rope_on=True, theta=None):
+    """q, k, v of one attention block; RoPE at ``theta`` (the config's
+    ``rope_theta`` when None), or none when ``rope_on`` is False."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
@@ -113,22 +151,22 @@ def _qkv(params, cfg, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if rope_on:
+        theta = cfg.rope_theta if theta is None else theta
+        q = rope(q, positions, theta)
+        k = rope(k, positions, theta)
     return q, k, v
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd)."""
+def flash_attention(q, k, v, *, causal=True, window=0, kv_block=None):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd). ``kv_block`` is
+    the plain path's block of keys (the JAX caller's; by default from
+    Sq)."""
     if q.is_cuda:
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window)
-    if window > 0 and causal and q.shape[1] == k.shape[1] > window:
-        # as layer_forward in the JAX model: a binding static window is
-        # banded; K1 skips the tiles outside the band on the card
-        return banded_local_attention(q, k, v, window=window)
-    return flash_attention_blocked(q, k, v, causal=causal, window=window,
-                                   kv_block=min(1024, max(128, q.shape[1])))
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 kv_block=kv_block)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
@@ -138,6 +176,19 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
                                            window=window)
     return decode_attention_dense(q, k_cache, v_cache, cache_len,
                                   window=window)
+
+
+def flash_attention_plain(q, k, v, *, causal=True, window=0, kv_block=None):
+    """The model's attention in plain PyTorch on any device: the path the
+    CPU takes, as the JAX model's ``layer_forward`` picks it."""
+    if window > 0 and causal and q.shape[1] == k.shape[1] > window:
+        # as layer_forward in the JAX model: a binding static window is
+        # banded; K1 skips the tiles outside the band on the card
+        return banded_local_attention(q, k, v, window=window)
+    if kv_block is None:
+        kv_block = min(1024, max(128, q.shape[1]))
+    return flash_attention_blocked(q, k, v, causal=causal, window=window,
+                                   kv_block=kv_block)
 
 
 def _expand_heads(t, G):
@@ -269,6 +320,23 @@ def swiglu(params, x):
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+def init_gelu_mlp(gen, d, ff, dtype, device):
+    return {
+        "w_in": _he(gen, (d, ff), 1 / math.sqrt(d), dtype, device),
+        "b_in": torch.zeros((ff,), dtype=dtype, device=device),
+        "w_out": _he(gen, (ff, d), 1 / math.sqrt(ff), dtype, device),
+        "b_out": torch.zeros((d,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(params, x):
+    """``jax.nn.gelu``'s default, the tanh approximation, on an fp32
+    upcast."""
+    h = x @ params["w_in"] + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"] + params["b_out"]
 
 
 # --------------------------------------------------------------------------

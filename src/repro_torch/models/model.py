@@ -7,20 +7,27 @@ layers). ``lax.scan`` over cycles becomes a Python loop over the stacked
 params; each layer reads its slice as a view.
 
 The kinds ``global``, ``local`` (sliding window over a ring-buffer KV
-cache), ``moe``/``moe_dense`` (global attention with a Mixture-of-Experts
-FFN, whose load-balancing aux loss ``forward`` returns), ``rglru``
-(Griffin recurrent block) and ``rwkv`` (RWKV-6 time-mix and channel-mix)
-are ported. The cache — KV buffers and recurrent states
-alike — is updated in place (``prefill`` and ``decode_step`` write into
-the tensors of the cache they are given and return that cache), which
-keeps one resident copy of the slot cache; the JAX functions return a new
-tree instead.
+cache, RoPE at ``rope_theta_local`` where set), ``moe``/``moe_dense``
+(global attention with a Mixture-of-Experts FFN, whose load-balancing aux
+loss ``forward`` returns), ``rglru`` (Griffin recurrent block) and
+``rwkv`` (RWKV-6 time-mix and channel-mix) are ported, as are a prefix of
+embeddings (llava's patches, ``prefix_embeds``) and, in ``encdec.py``,
+the encoder-decoder backbone (whisper), to which the public functions
+here hand an ``is_encoder_decoder`` config. The cache — KV buffers and
+recurrent states alike — is updated in place (``prefill`` and
+``decode_step`` write into the tensors of the cache they are given and
+return that cache), which keeps one resident copy of the slot cache; the
+JAX functions return a new tree instead.
+
+JAX's ``forward`` scans gemma3-style interleaves per layer with traced
+(window, theta) when no window binds (``_merge_attention_stack``), a
+remat device with the same arithmetic as the loop over kinds here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -31,19 +38,7 @@ from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
 from repro_torch.models.config import ModelConfig
 
-KINDS = ("global", "local", "moe", "moe_dense", "rglru", "rwkv")
 ATTN_KINDS = ("global", "local", "moe", "moe_dense")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not serve yet."""
-    for kind in cfg.block_pattern:
-        if kind not in KINDS:
-            raise NotImplementedError(f"layer kind {kind!r} is unknown")
-    if cfg.is_encoder_decoder or cfg.num_patch_tokens:
-        raise NotImplementedError(
-            "encoder-decoder and patch-prefix models are not ported yet; "
-            "see ROADMAP.md Queue 1, remaining archs")
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +92,57 @@ def _tree_stack(trees):
     return _tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def init_stacked(generator: torch.Generator, init_one: Callable[[], Any],
+                 n: int, dev) -> Dict[str, Any]:
+    """``n`` layers from ``init_one()`` (which draws from ``generator``)
+    stacked on a leading axis: the draws of n calls in order, each
+    layer's weights drawn straight into its slice of the stack, so no
+    layer is ever held beside the stack. A first pass with meta tensors
+    for the draws (the generator's state put back after it) finds the
+    leaves and their shapes."""
+    calls: List[torch.Tensor] = []
+
+    def probe(shape, dtype):
+        calls.append(torch.empty(shape, dtype=dtype, device="meta"))
+        return calls[-1]
+
+    state = generator.get_state()
+    L.DRAW_TARGET.fn = probe
+    try:
+        template = init_one()
+    finally:
+        L.DRAW_TARGET.fn = None
+        generator.set_state(state)
+    stacked = _tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
+                                              dtype=t.dtype, device=dev),
+                        template)
+    where = {}
+    _tree_map(lambda t, s: where.__setitem__(id(t), s), template, stacked)
+    dests = [where[id(t)] for t in calls]     # the stack of each draw
+
+    def put(dst, src):
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+    for c in range(n):
+        todo = iter(d[c] for d in dests)
+
+        def target(shape, dtype, todo=todo):
+            dst = next(todo)
+            if tuple(dst.shape) != shape or dst.dtype != dtype:
+                raise RuntimeError(f"draw {shape} {dtype} does not match "
+                                   f"its slice {tuple(dst.shape)}")
+            return dst
+
+        L.DRAW_TARGET.fn = target
+        try:
+            layer = init_one()
+        finally:
+            L.DRAW_TARGET.fn = None
+        _tree_map(lambda s, x, c=c: put(s[c], x), stacked, layer)
+    return stacked
+
+
 def _layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
     """(n_cycles, n_tail) as ``init_params``/``init_cache`` lay them out."""
     plen = len(cfg.block_pattern)
@@ -107,31 +153,24 @@ def _layer_counts(cfg: ModelConfig) -> Tuple[int, int]:
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                 device: DeviceLike = None) -> Dict[str, Any]:
     """Random params drawn on ``device`` from ``generator`` (which must
-    draw on that device). Layer by layer, so a stacked cycle never needs
-    more than one layer of fp32 scratch."""
-    check_supported(cfg)
+    draw on that device). Layer by layer, each stacked layer drawn into
+    its slice of the stack (``init_stacked``), so the device never holds
+    more than the params and one weight's fp32 scratch."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator draws on {generator.device}, params "
                          f"go to {dev}")
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.init_params(generator, cfg, dev)
     kinds = cfg.layer_kinds()
     pat = cfg.block_pattern
     plen = len(pat)
     n_cycles, n_tail = _layer_counts(cfg)
 
-    cycles = []
-    if n_cycles:
-        for pos in range(plen):
-            first = init_layer(generator, cfg, pat[pos], dev)
-            stacked = _tree_map(
-                lambda t: torch.empty((n_cycles,) + tuple(t.shape),
-                                      dtype=t.dtype, device=dev), first)
-            _tree_map(lambda dst, src: dst[0].copy_(src), stacked, first)
-            for c in range(1, n_cycles):
-                layer = init_layer(generator, cfg, pat[pos], dev)
-                _tree_map(lambda dst, src, c=c: dst[c].copy_(src),
-                          stacked, layer)
-            cycles.append(stacked)
+    cycles = [init_stacked(generator, lambda kind=kind: init_layer(
+        generator, cfg, kind, dev), n_cycles, dev)
+        for kind in pat] if n_cycles else []
     tail = [init_layer(generator, cfg, kinds[i], dev)
             for i in range(cfg.num_layers - n_tail, cfg.num_layers)]
     p = {
@@ -172,6 +211,13 @@ def _layers(cfg, params, cache=None) -> Iterator[Tuple[str, Dict, Dict]]:
 # Per-layer apply: full-sequence (prefill / forward) and single-step (decode)
 # ---------------------------------------------------------------------------
 
+def _theta(cfg, kind) -> float:
+    """RoPE theta of an attention layer (``_attn_common``)."""
+    if kind == "local" and cfg.rope_theta_local:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
 def _recurrent_layer(params, cfg, kind, x, state):
     """An ``rwkv`` or ``rglru`` layer over S >= 1 tokens, from ``state``
     (updated in place) or from zeros when it is None. Returns x."""
@@ -209,7 +255,8 @@ def layer_forward(params, cfg, kind, x, positions, cache=None):
 
     window = cfg.window_size if kind == "local" else 0
     xn = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    q, k, v = L._qkv(params["attn"], cfg, xn, positions)
+    q, k, v = L._qkv(params["attn"], cfg, xn, positions,
+                     theta=_theta(cfg, kind))
     o = L.flash_attention(q, k, v, causal=True, window=window)
     x = x + torch.einsum("bshk,hkd->bsd", o, params["attn"]["wo"])
     h, aux = _ffn(params, cfg, kind, L.rmsnorm(params["norm2"], x,
@@ -245,7 +292,8 @@ def layer_decode(params, cfg, kind, x, pos, cache):
         return _recurrent_layer(params, cfg, kind, x, cache)
 
     xn = L.rmsnorm(params["norm1"], x, cfg.norm_eps)
-    q, k, v = L._qkv(params["attn"], cfg, xn, pos[:, None])
+    q, k, v = L._qkv(params["attn"], cfg, xn, pos[:, None],
+                     theta=_theta(cfg, kind))
     W_ = cache["k"].shape[1]
     # as the one-hot select of the JAX model: the ring slot pos % W for
     # ``local``, position pos for ``global`` (no write past the end)
@@ -281,8 +329,10 @@ def init_layer_cache(cfg, kind, batch, max_len, device):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: DeviceLike = None) -> Dict[str, Any]:
-    check_supported(cfg)
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.init_cache(cfg, batch, max_len, dev)
     n_cycles, n_tail = _layer_counts(cfg)
     cycles = []
     if n_cycles:
@@ -301,42 +351,70 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 # Whole-model forward / prefill / decode
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg, tokens):
+def _embed_inputs(params, cfg, tokens, prefix_embeds=None):
+    """Token embeddings (scaled where the config says), after a prefix of
+    given embeddings (llava's patches) in the activation dtype."""
     x = L.embed(params["embed"], tokens).to(cfg.adtype)
     if cfg.scale_embedding:
         x = x * math.sqrt(cfg.d_model)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(cfg.adtype), x], dim=1)
     return x
 
 
-def _unembed(params, cfg, x):
+def _final_norm(params, cfg, x):
     norm = L.layernorm if "rwkv" in cfg.block_pattern else L.rmsnorm
-    x = norm(params["final_norm"], x, cfg.norm_eps)
-    return L.unembed(params.get("unembed", params["embed"]), x,
+    return norm(params["final_norm"], x, cfg.norm_eps)
+
+
+def unembed_table(params):
+    return params.get("unembed", params["embed"])
+
+
+def _unembed(params, cfg, x):
+    return L.unembed(unembed_table(params), _final_norm(params, cfg, x),
                      cfg.logit_softcap)
 
 
-def forward(params, cfg: ModelConfig, tokens):
+def forward(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     """Full-sequence forward from zero state. Returns (logits, aux_loss)
     as JAX does: aux is the sum of the MoE layers' load-balancing losses
-    (0 without MoE layers)."""
-    check_supported(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    (0 without MoE layers). ``prefix_embeds`` (B, P, d) go before the
+    tokens (an encoder-decoder model's frame embeddings instead), and the
+    logits cover them too."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.forward(params, cfg, tokens, prefix_embeds)
+    x, aux = forward_features(params, cfg, tokens, prefix_embeds)
+    return L.unembed(unembed_table(params), x, cfg.logit_softcap), aux
+
+
+def forward_features(params, cfg: ModelConfig, tokens, prefix_embeds=None):
+    """``forward`` up to and including the final norm; no unembed."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.forward_features(params, cfg, tokens, prefix_embeds)
+    x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p_l, _ in _layers(cfg, params):
         x, a = layer_forward(p_l, cfg, kind, x, positions)
         if a is not None:
             aux = aux + a
-    return _unembed(params, cfg, x), aux
+    return _final_norm(params, cfg, x), aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache):
+def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None):
     """Process a prompt, fill the cache in place. Returns (last-token
     logits, cache). Attends only over the new K/V and writes them from
     cache slot 0 (a fresh cache, as the engine uses it); the recurrent
-    kinds start from the state the cache holds, as in the JAX model."""
-    check_supported(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    kinds start from the state the cache holds, as in the JAX model.
+    ``prefix_embeds`` (B, P, d) go before the tokens and count in
+    ``pos``; an encoder-decoder model takes its frame embeddings there."""
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.prefill(params, cfg, tokens, cache, prefix_embeds)
+    x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     S = x.shape[1]
     positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
     for kind, p_l, c_l in _layers(cfg, params, cache):
@@ -349,7 +427,9 @@ def prefill(params, cfg: ModelConfig, tokens, cache):
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """One decode step, cache updated in place. tokens: (B,) int.
     Returns (logits (B,V), cache)."""
-    check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        from repro_torch.models import encdec
+        return encdec.decode_step(params, cfg, tokens, cache)
     pos = cache["pos"]
     x = _embed_inputs(params, cfg, tokens[:, None])
     for kind, p_l, c_l in _layers(cfg, params, cache):
@@ -361,8 +441,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
 
 # -- per-slot cache views (serving engine continuous batching) -------------
 
+_STACKED_KEYS = ("cycles", "self", "cross")   # leading dim = layer stack
+
+
 def _batch_axis(key: str) -> int:
-    return 1 if key == "cycles" else 0     # stacked caches lead with layers
+    return 1 if key in _STACKED_KEYS else 0
 
 
 def cache_take_slot(cache: Dict[str, Any], slot: int) -> Dict[str, Any]:

@@ -64,18 +64,25 @@ def dispatch(idx, E: int, C: int):
 
     Returns (slot_tok (E, C): the source token of each expert slot, T
     where empty; slot_of (T*k,): the flat slot e * C + pos of each
-    (token, choice), E * C where it was dropped)."""
+    (token, choice), E * C where it was dropped).
+
+    Every shape is fixed by (T, k, E, C) and nothing is read back to the
+    host (no ``bincount``, no boolean index), so a decode step with MoE
+    layers can be captured in a CUDA graph."""
     T, k = idx.shape
     flat_e = idx.reshape(-1)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = torch.zeros((E,), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=idx.device) - starts[sorted_e]
     tok = order // k
     keep = pos < C
-    slot_tok = torch.full((E, C), T, dtype=torch.long, device=idx.device)
-    slot_tok[sorted_e[keep], pos[keep]] = tok[keep]
+    # a dropped slot writes to a spare column C, cut off after
+    slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=idx.device)
+    slot_tok[sorted_e, torch.where(keep, pos, C)] = tok
+    slot_tok = slot_tok[:, :C]
     slot_of = torch.full((T * k,), E * C, dtype=torch.long,
                          device=idx.device)
     slot_of[order] = torch.where(keep, sorted_e * C + pos,

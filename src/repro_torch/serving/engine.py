@@ -12,6 +12,11 @@ in place: a prefill on a client thread and a decode step on the worker
 thread must not interleave their writes. (The JAX engine swaps whole
 cache trees instead, and a prefill that lands while a step is in flight
 is lost when the step stores its result.)
+
+Requests are text tokens only, as in the JAX engine: a patch-prefix
+model (llava) is served without its prefix, and an encoder-decoder model
+(whisper) loads and warms up (a decode step, no prefill) but refuses a
+request, which would need frame embeddings the engine does not take.
 """
 
 from __future__ import annotations
@@ -70,13 +75,17 @@ class InferenceEngine:
         """One decode and one bucketed prefill on a scratch cache, so the
         kernels are built and loaded and the allocator is warm before the
         first request (counts toward load time, the paper's Fig. 2b
-        load+warmup analogue)."""
+        load+warmup analogue). An encoder-decoder model runs the decode
+        only, as the JAX engine does."""
         with self._model_lock:
             cache = MDL.init_cache(self.cfg, self.batch_slots,
                                    prompt_bucket + 1, device=self.device)
             tok = torch.zeros((self.batch_slots,), dtype=torch.int32,
                               device=self.device)
-            MDL.decode_step(self.params, self.cfg, tok, cache)
+            logits, _ = MDL.decode_step(self.params, self.cfg, tok, cache)
+            if self.cfg.is_encoder_decoder:
+                logits.cpu()
+                return
             sub = MDL.cache_take_slot(cache, 0)
             sub["pos"] = torch.zeros((1,), dtype=torch.int32,
                                      device=self.device)
@@ -89,6 +98,11 @@ class InferenceEngine:
     # -- admission -----------------------------------------------------------
     @torch.inference_mode()
     def try_admit(self, req: Request) -> bool:
+        if self.cfg.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the engine serves text prompts only; an "
+                "encoder-decoder request needs frame embeddings, which it "
+                "does not take (as the JAX engine)")
         with self._lock:
             try:
                 slot = self.slots.index(None)

@@ -226,24 +226,27 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for():
 
 
 def test_unported_archs_and_kinds_raise():
-    for arch in ("arctic-480b", "gemma3-27b", "whisper-medium"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            tconfigs.get_config(arch)
+    """Every arch of the JAX package resolves, in its order; an unknown
+    arch and an unknown layer kind raise."""
+    assert tconfigs.ARCHS == jconfigs.ARCHS
+    for arch in jconfigs.ARCHS:
+        assert tconfigs.get_config(arch).name == arch
     with pytest.raises(KeyError, match="unknown"):
         tconfigs.get_config("nope")
-    assert set(ARCHS) <= set(tconfigs.ARCHS)
     from repro_torch.experiment.workload import TESTBED_ARCHS
     assert set(TESTBED_ARCHS) <= set(tconfigs.ARCHS)
     from repro_torch.models import model as MDL
     from repro_torch.device import generator_for
     cfg = tconfigs.get_smoke("qwen2.5-3b")
     gen = generator_for(torch.device("cpu"), 0)
-    for bad in (cfg.replace(is_encoder_decoder=True),
-                cfg.replace(num_patch_tokens=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MDL.init_params(gen, bad, device="cpu")
-    # the kinds and features the slices brought now build
-    for good in (cfg.replace(block_pattern=("local", "global")),
+    with pytest.raises(ValueError, match="unknown layer kind"):
+        cfg.replace(block_pattern=("mamba",))
+    # the kinds and features the port brought now build, encoder-decoder
+    # and patch-prefix configs included
+    for good in (cfg.replace(is_encoder_decoder=True, num_encoder_layers=1,
+                             num_decoder_layers=1, encoder_seq_len=6),
+                 cfg.replace(num_patch_tokens=4),
+                 cfg.replace(block_pattern=("local", "global")),
                  cfg.replace(tie_embeddings=False),
                  cfg.replace(qk_norm=True),
                  cfg.replace(block_pattern=("moe",), num_experts=4, top_k=2,

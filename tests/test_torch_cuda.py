@@ -53,8 +53,13 @@ FLASH_SWEEP = [                     # tests/test_kernels.py:18-23
     (2, 33, 33, 8, 2, 16, True, 0),         # the testbed's smoke rungs
     (1, 40, 40, 6, 2, 16, True, 0),
     (2, 17, 17, 1, 1, 16, True, 8),
+    (2, 33, 33, 4, 4, 16, True, 0),         # qwen1.5-4b's (G = 1) and
+    (2, 33, 33, 4, 2, 16, True, 8),         # gemma3-27b's local smoke
     (2, 77, 77, 16, 2, 128, True, 0),       # ragged Sq (not a multiple
     (1, 150, 150, 4, 1, 256, True, 0),      # of the 64-row query tile)
+    (2, 1, 1500, 16, 16, 64, False, 0),     # Sq != Skv, non-causal:
+    (1, 64, 1500, 16, 16, 64, False, 0),    # whisper's cross attention
+    (2, 33, 77, 8, 2, 128, False, 0),       # and a ragged pair
 ]
 DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (3, 8, 2, 64, 200, 0),
@@ -63,10 +68,14 @@ DECODE_SWEEP = [                    # tests/test_kernels.py:42-46
     (4, 10, 1, 256, 512, 0),                # recurrentgemma heads
     (2, 8, 2, 16, 96, 0),                   # the testbed's smoke rungs
     (2, 2, 1, 16, 96, 8),
+    (2, 4, 4, 16, 96, 0),                   # qwen1.5-4b's and
+    (2, 4, 2, 16, 8, 8),                    # gemma3-27b's local smoke
     (2, 4, 4, 128, 300, 0),                 # G = 1
     (4, 5, 1, 256, 512, 100),               # G = 5, window inside chunks
     (4, 16, 2, 128, 512, 0),                # G = 8
     (2, 32, 1, 64, 700, 0),                 # G = 32
+    (2, 56, 8, 128, 300, 0),                # G = 7, arctic-480b's
+    (4, 28, 4, 128, 512, 0),                # G = 7 at its :w050
 ]
 # K2 at the main path's decode shape: 4 slots x 512 positions; plus lens at
 # the 32-key tile and chunk edges (1, 32, 33) and the whole cache
@@ -123,11 +132,14 @@ def test_kernels_match_plain_on_cuda(cuda, dtype):
 
 def _full_width_attention_shapes():
     """(H, KVH, hd, window) of every rung phases 4 and 6 serve at full
-    width: the ladders of qwen2.5-3b, recurrentgemma-2b and qwen3-32b."""
+    width: the ladders of every attention arch but the MoE testbed arch
+    (whose heads qwen3-32b's cover)."""
     from repro_torch.core.variants import build_ladder
     from repro_torch.models.model import ATTN_KINDS
     out = set()
-    for arch in ("qwen2.5-3b", "recurrentgemma-2b", "qwen3-32b"):
+    for arch in ("qwen2.5-3b", "recurrentgemma-2b", "qwen3-32b",
+                 "qwen1.5-4b", "gemma3-27b", "llava-next-mistral-7b",
+                 "arctic-480b", "whisper-medium"):
         for v in build_ladder(configs.get_config(arch)):
             c = v.config
             kinds = set(c.layer_kinds())
@@ -355,6 +367,55 @@ def test_model_on_card_matches_cpu(cuda, arch):
     assert {m: m.LAUNCHES for m in want} == want
     # the model's RG-LRU layers take K3's gated route only
     assert rglru_ops.GATED_LAUNCHES == rglru_ops.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [None, 32])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "gemma3-27b",
+                                  "llava-next-mistral-7b", "arctic-480b",
+                                  "whisper-medium"])
+def test_other_archs_on_card_match_cpu(cuda, arch, head_dim):
+    """SMOKE widths (the smoke head_dim 16 the testbed serves, and 32),
+    fp32, the model's entry points with llava's patch embeddings and
+    whisper's frames from a numpy seed: a 12-token prefill and 6 decode
+    steps on the card (kernels; gemma3's window of 8 binds and its ring
+    wraps) against the CPU (plain path), and K1/K2 launched once per
+    attention a call."""
+    cfg = configs.get_smoke(arch)
+    if head_dim is not None:
+        cfg = cfg.replace(head_dim=head_dim)
+    cpu = torch.device("cpu")
+    params = MDL.init_params(generator_for(cpu, 0), cfg, device=cpu)
+    params_g = MDL._tree_map(lambda t: t.to(cuda), params)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 18)).astype(np.int32))
+    n = (cfg.encoder_seq_len if cfg.is_encoder_decoder
+         else cfg.num_patch_tokens)
+    extra = torch.from_numpy(rng.standard_normal(
+        (2, n, cfg.d_model)).astype(np.float32)) if n else None
+    P = 0 if cfg.is_encoder_decoder else cfg.num_patch_tokens
+    cache_c = MDL.init_cache(cfg, 2, P + 24, device=cpu)
+    cache_g = MDL.init_cache(cfg, 2, P + 24, device=cuda)
+    fa_ops.LAUNCHES = dec_ops.LAUNCHES = 0
+    with torch.inference_mode():
+        lc, _ = MDL.prefill(params, cfg, toks[:, :12], cache_c, extra)
+        lg, _ = MDL.prefill(params_g, cfg, toks[:, :12].to(cuda), cache_g,
+                            None if extra is None else extra.to(cuda))
+        for t in range(12, 18):
+            assert _max_err(lg.cpu(), lc) < LOGIT_ATOL
+            assert torch.equal(lg.argmax(-1).cpu(), lc.argmax(-1))
+            lc, _ = MDL.decode_step(params, cfg, toks[:, t], cache_c)
+            lg, _ = MDL.decode_step(params_g, cfg, toks[:, t].to(cuda),
+                                    cache_g)
+        assert _max_err(lg.cpu(), lc) < LOGIT_ATOL
+    torch.cuda.synchronize()
+    if cfg.is_encoder_decoder:
+        n_enc, n_dec = cfg.num_encoder_layers, cfg.num_decoder_layers
+        want = (n_enc + 2 * n_dec + 6 * n_dec, 6 * n_dec)
+    else:
+        want = (cfg.num_layers, 6 * cfg.num_layers)
+    assert (fa_ops.LAUNCHES, dec_ops.LAUNCHES) == want
 
 
 @pytest.mark.cuda
