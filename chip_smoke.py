@@ -141,7 +141,22 @@ and prints no result):
    decoder-only archs outside the default list (qwen1.5-4b, gemma3-27b,
    llava-next-mistral-7b, arctic-480b) on the testbed and on the sim:
    equal failover choices, no load error, K1, K2 and the K5 round kernel
-   launched during the testbed run;
+   launched during the testbed run; (d) the testbed's tensor-parallel
+   shard plane: qwen2.5-3b (critical) and rwkv6-3b at their published
+   configs (bf16), ``tp_degree=2`` on 3 sites x 2 servers, each group's
+   weights drawn on the card, split into two slices held by two workers
+   and gathered into the lead's engine, whose greedy tokens for a fixed
+   prompt must equal those of a ``WorkerServer.load`` engine of the same
+   variant; run under ``shard_policy="auto"`` with a non-lead member of
+   each group killed (qwen2.5-3b degrades: its rebuilt engine, a slice
+   zero-filled, gives finite logits unlike the full engine's; rwkv6-3b
+   reshards: the lead serves ``:full`` again with the same tokens, and the
+   measured repartition recalibrates the sim's model), then under
+   ``"monolith"`` with qwen2.5-3b's member killed (the group falls back
+   and the controller plans and cold-loads a monolith); no load error;
+   K1, K2, both K4 routes and (in the monolith run) the K5 round kernel
+   launched; it prints the six measured wall-time series, client MTTR,
+   availability, refused submits and the peak memory of each run;
 7. the rest of the planning and protection plane, in this process from
    fixed seeds, K5's round-kernel counters zeroed just before and read
    just after each planning run: (a) 20 random instances per state dtype
@@ -286,6 +301,12 @@ TESTBED_SPEC = dict(scenario="single-server", app_mix="arch", archs=None,
                     n_sites=3, servers_per_site=2, headroom=0.35,
                     client_hz=20.0, time_scale=0.25, settle_s=25.0, seed=1)
 FULL_TESTBED_LAYERS = {"qwen2.5-3b": None, "qwen3-32b": 8}
+# phase 6 (d): the testbed's tensor-parallel shard plane at full width,
+# (arch, critical): under shard_policy "auto" the critical qwen2.5-3b
+# degrades and rwkv6-3b reshards; a 16-token prompt holds the gathered
+# engines' greedy tokens against a monolith load's
+SHARD_APPS = (("qwen2.5-3b", True), ("rwkv6-3b", False))
+SHARD_PROMPT = 16
 # the testbed's smoke ladders serve f32 engines of 2 slots x 96 positions
 # with 8-token prompts (serving/server.py, serving/workload.py)
 SMOKE_SLOTS, SMOKE_MAX_LEN, SMOKE_PROMPT = 2, 96, 8
@@ -2886,6 +2907,230 @@ def phase_build():
         raise AssertionError(f"K6's bf16 kernels lack tensor-core mma: {k6}")
 
 
+def shard_apps():
+    """Phase 6 (d)'s applications: each arch's published config, bf16."""
+    from repro_torch import configs
+    from repro_torch.core.variants import Application, build_ladder
+
+    return [Application(id=f"{arch}-tp{i}", family=arch,
+                        variants=build_ladder(configs.get_config(arch)),
+                        critical=critical)
+            for i, (arch, critical) in enumerate(SHARD_APPS)]
+
+
+def shard_prompts(apps):
+    rng = np.random.default_rng(SEED)
+    return {a.id: rng.integers(0, a.full.config.vocab_size, SHARD_PROMPT,
+                               dtype=np.int64).astype(np.int32)
+            for a in apps}
+
+
+def monolith_tokens(apps, prompts):
+    """Each app's :full greedy tokens from an engine that
+    `WorkerServer.load` built on the card, one app at a time."""
+    from repro_torch.core.heartbeat import FailureDetector, WallClock
+    from repro_torch.serving.server import WorkerServer
+
+    out = {}
+    for app in apps:
+        w = WorkerServer("monolith", FailureDetector(WallClock()))
+        w.load(app, app.full)
+        out[app.id] = fresh_engine_tokens(w.engines[app.full.name],
+                                          prompts[app.id])
+        w.kill()
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def prefill_logits(eng, prompt):
+    """The last position's logits of ``prompt`` on ``eng``'s params."""
+    from repro_torch.models import model as MDL
+
+    with torch.inference_mode():
+        cache = MDL.init_cache(eng.cfg, 1, eng.max_len, device=eng.device)
+        logits, _ = MDL.prefill(eng.params, eng.cfg,
+                                torch.as_tensor(prompt,
+                                                device=eng.device)[None],
+                                cache)
+    return logits.float()
+
+
+def shard_run(policy, apps, prompts, want):
+    """One full-width testbed with ``tp_degree=2`` under ``policy``: a
+    non-lead member of each group killed ("auto"), or of the first group
+    only ("monolith"). Counters zeroed just before the testbed is built,
+    read just after it shuts down; the launches of the checks on its
+    engines are taken out (the gathered engines' tokens before the kill,
+    on the quiet testbed) or made after the read (the rest)."""
+    from repro_torch.core.scenario import Scenario, ShardFail
+    from repro_torch.core.shardgroup import degraded_name
+    from repro_torch.serving.testbed import MiniTestbed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.monotonic()
+    tb = MiniTestbed(apps=apps, n_sites=3, servers_per_site=2,
+                     headroom=0.35, seed=SEED + 2, tp_degree=2,
+                     shard_policy=policy)
+    try:
+        tb.deploy()
+        deploy_s = time.monotonic() - t0
+        groups = {a.id: tb.shards.groups[a.id] for a in apps}
+        layout = {aid: {r: m.server_id for r, m in g.members.items()}
+                  for aid, g in groups.items()}
+        leads = {aid: g.lead.server_id for aid, g in groups.items()}
+        quiet = time.monotonic() + 60.0
+        while not tb.executor.idle():
+            if time.monotonic() > quiet:
+                raise AssertionError("the testbed still loads a minute "
+                                     "after deploy")
+            time.sleep(0.05)
+        before = read_counts()
+        gathered = {a.id: fresh_engine_tokens(
+            tb.workers[leads[a.id]].engines[a.full.name], prompts[a.id])
+            for a in apps}
+        checks = {k: v - before[k] for k, v in read_counts().items()}
+        hit = apps if policy == "auto" else apps[:1]
+        victims = {a.id: groups[a.id].members[max(groups[a.id].members)]
+                   .server_id for a in hit}
+        if set(victims.values()) & set(leads.values()):
+            raise AssertionError(f"a victim leads a group: {layout}")
+        events = [ShardFail(t=2.0 + 0.5 * i, server=sid) for i, sid in
+                  enumerate(sorted(set(victims.values())))]
+        res = tb.run_scenario(
+            Scenario(name=f"tp-shard-{policy}", horizon=events[-1].t,
+                     events=events), settle_s=120.0, client_hz=10.0)
+        shard = res["shard"]
+        after, engines = {}, {}
+        for a in apps:
+            g = groups[a.id]
+            row = {"state": g.state,
+                   "members": {r: m.server_id for r, m in g.members.items()},
+                   "route": tb.router.lookup(a.id)}
+            if g.state == "degraded":
+                lead = tb.workers[g.lead.server_id]
+                dv = degraded_name(a.full, len(g.members), 2)
+                engines[a.id] = (lead.engines[a.full.name], lead.engines[dv])
+                row["degraded_is_rebuilt"] = \
+                    engines[a.id][1] is not engines[a.id][0]
+            elif g.state == "live":
+                engines[a.id] = tb.workers[g.lead.server_id].engines[
+                    a.full.name]
+            else:
+                sid, vname = row["route"]
+                row["resident"] = tb.workers[sid].has(vname)
+                row["recovered"] = [
+                    (r.recovered, r.mode, r.variant) for r in
+                    res["records"] if r.app_id == a.id]
+            after[a.id] = row
+        wall = time.monotonic() - t0
+    finally:
+        tb.shutdown()
+    launches = {k: v - checks[k] for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated()
+    for aid, eng in engines.items():
+        if isinstance(eng, tuple):
+            full = prefill_logits(eng[0], prompts[aid])
+            deg = prefill_logits(eng[1], prompts[aid])
+            after[aid].update(
+                degraded_finite=bool(torch.isfinite(deg).all()),
+                degraded_vs_full_max_abs=float((deg - full).abs().max()))
+        else:
+            after[aid]["tokens_after"] = fresh_engine_tokens(eng,
+                                                             prompts[aid])
+    del engines
+    t = res["traffic"]
+    out = {"policy": policy, "layout": layout, "victims": victims,
+           "deploy_s": deploy_s, "wall_s": wall,
+           "tokens_equal_monolith": {a: gathered[a] == want[a]
+                                     for a in gathered},
+           "after": after, "actions": shard["actions"],
+           "states": shard["states"],
+           "repartition_scale": shard["repartition_scale"],
+           "measured": shard["measured"],
+           "client_mttr_avg_s": t.client_mttr_avg,
+           "availability": t.availability, "n_offered": t.n_offered,
+           "refused_no_slot": res["refused_no_slot"],
+           "detect_latency_s": res["detect_latency_s"],
+           "load_errors": res["load_errors"],
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "check_launches": checks}
+    log("  " + json.dumps({"testbed_tp_shard": out}, default=str))
+    if res["load_errors"]:
+        raise AssertionError(f"testbed errors: {res['load_errors']}")
+    if gathered != want:
+        raise AssertionError(f"gathered tokens {gathered} != monolith {want}")
+    dead = set(victims.values())
+    for a in apps:
+        row, g = after[a.id], groups[a.id]
+        if not dead & set(layout[a.id].values()):
+            if g.state != "live":
+                raise AssertionError(f"untouched group {a.id}: {row}")
+        elif policy == "monolith":
+            if not (g.state == "fallen-back" and row["resident"]
+                    and row["recovered"]
+                    and all(r[0] for r in row["recovered"])):
+                raise AssertionError(f"{a.id} did not fall back: {row}")
+        elif a.critical:
+            if not (g.state == "degraded" and set(g.members) == {0}
+                    and row["route"][0] == leads[a.id]
+                    and row["degraded_finite"]
+                    and row["degraded_vs_full_max_abs"] > 0
+                    and row["degraded_is_rebuilt"]):
+                raise AssertionError(f"{a.id} did not degrade: {row}")
+        else:
+            # tests/test_shardgroup.py:176-204
+            if not (g.state == "live" and len(g.members) == 2
+                    and victims[a.id] not in row["members"].values()
+                    and row["tokens_after"] == want[a.id]):
+                raise AssertionError(f"{a.id} did not reshard: {row}")
+    meas = shard["measured"]
+    if policy == "auto":
+        if not (meas["slice_fetch_s"]["n"] >= 1
+                and meas["reshard_mttr_s"]["n"] >= 1
+                and meas["reshard_mttr_s"]["avg_s"] > 0
+                and meas["degrade_rebuild_s"]["n"] >= 1
+                and shard["repartition_scale"] != 1.0):
+            raise AssertionError(f"measured {meas}, scale "
+                                 f"{shard['repartition_scale']}")
+    need = ("flash_attention", "decode_attention", "rwkv6_chunked",
+            "rwkv6_scan") + (("planner_round",) if policy == "monolith"
+                             else ())
+    idle = [k for k in need if not launches[k]]
+    if idle:
+        raise AssertionError(f"{idle} never launched in the {policy} run")
+    log(f"  {policy}: gathered tokens == monolith load's; states "
+        f"{json.dumps(shard['states'])}, actions "
+        f"{json.dumps(shard['actions'])}, repartition scale "
+        f"{shard['repartition_scale']:.6f}; client MTTR "
+        f"{t.client_mttr_avg * 1e3:.2f} ms, availability "
+        f"{t.availability:.6f} of {t.n_offered} requests "
+        f"({res['refused_no_slot']} refused for want of a free batch "
+        f"slot); max_memory_allocated {peak / 2**30:.3f} GiB; run "
+        f"{wall:.1f} s; launches {json.dumps(launches)} (the checks' "
+        f"own apart: {json.dumps(checks)})")
+    for k, v in meas.items():
+        log(f"    measured {k}: n {v['n']}, avg {v['avg_s']:.6f} s, max "
+            f"{v['max_s']:.6f} s")
+    return out, launches
+
+
+def phase_testbed_shard():
+    """Phase 6 (d): runs under "auto" and "monolith"; the launches of
+    both, summed."""
+    apps = shard_apps()
+    prompts = shard_prompts(apps)
+    want = monolith_tokens(apps, prompts)
+    auto, n_auto = shard_run("auto", apps, prompts, want)
+    mono, n_mono = shard_run("monolith", shard_apps(), prompts, want)
+    return ({"auto": auto, "monolith": mono},
+            {k: n_auto[k] + n_mono[k] for k in n_auto})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2968,6 +3213,11 @@ def main() -> int:
         list(NEW_ARCHS), ("flash_attention", "decode_attention",
                           "planner_round"))
     log(f"  phase 6 (c) took {time.monotonic() - t0:.1f} s")
+    log("phase 6 (d): the testbed's tensor-parallel shard plane at full "
+        "width")
+    t0 = time.monotonic()
+    _, tb_shard = phase_testbed_shard()
+    log(f"  phase 6 (d) took {time.monotonic() - t0:.1f} s")
 
     log("phase 7: the planning and protection plane on the card")
     t0 = time.monotonic()
@@ -2999,6 +3249,8 @@ def main() -> int:
             if tb_new[name]:
                 by_path["testbed, qwen1.5/gemma3/llava/arctic (phase 6c)"] = \
                     tb_new[name]
+            if tb_shard[name]:
+                by_path["testbed TP shard (phase 6d)"] = tb_shard[name]
             by_path.update(plane_paths.get(name, {}))
         main_path = sum(by_path.values())
         if not main_path:

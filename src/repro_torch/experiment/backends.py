@@ -14,9 +14,9 @@ registered here:
 
 Both plan on `spec.device` (the card unless "cpu" is asked for) with the
 greedy family's torch backend unless `spec.planner_backend` says
-"numpy". The testbed's shard plane is not ported yet: `tp_degree > 1`
-there raises NotImplementedError naming its ROADMAP item (TP shard); the
-simulator runs it.
+"numpy". Both run the shard plane for `tp_degree > 1` (the testbed's
+tensor-parallel groups hold real weight slices on their workers,
+`serving/shard.py`) and report it in ``extras["shard"]``.
 
 Both resolve the scenario the same way (named library or a programmatic
 `spec.scenario_builder(cluster, apps, rng)`) and both report through the
@@ -189,7 +189,8 @@ class TestbedBackend:
             scheduler=spec.scheduler, load_bw=spec.load_bw,
             warmup_s=spec.warmup_s, nic_bw=spec.nic_bw,
             cloud_bw=spec.cloud_bw, replication=spec.replication,
-            resilience=spec.resilience, tp_degree=spec.tp_degree,
+            resilience=spec.resilience,
+            tp_degree=spec.tp_degree, shard_policy=spec.shard_policy,
             apps=list(spec.apps) if spec.apps is not None else None,
             device=spec.device, planner_backend=spec.planner_backend,
             planner_coordinators=spec.planner_coordinators)
@@ -216,7 +217,9 @@ class TestbedBackend:
                     "load_calibration": out.get("load_calibration", {}),
                     "load_errors": out["load_errors"],
                     "refused_no_slot": out["refused_no_slot"],
-                    "planner": ctl.planner_stats()})
+                    "planner": ctl.planner_stats(),
+                    **({"shard": out.get("shard", {})}
+                       if spec.tp_degree > 1 else {})})
 
 
 register_backend(SimBackend())

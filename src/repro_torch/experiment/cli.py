@@ -103,8 +103,8 @@ def _build_parser() -> argparse.ArgumentParser:
     run.add_argument("--tp-degree", type=int, default=None,
                      dest="tp_degree",
                      help="deploy every app as a tensor-parallel group "
-                          "spanning this many servers (shard plane; sim "
-                          "only in the port); 1 = monoliths")
+                          "spanning this many servers (shard plane); "
+                          "1 = monoliths")
     run.add_argument("--shard-policy", default=None, dest="shard_policy",
                      choices=["auto", "degrade", "reshard", "monolith"],
                      help="shard recovery ladder on a member loss "

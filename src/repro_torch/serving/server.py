@@ -15,6 +15,10 @@ as "the server died mid-load", while any other exception (a kernel that
 fails to build or launch, an out-of-memory error, a bad config) is a
 fault it reports. An exception from a decode step on the worker thread
 is kept in ``errors`` instead of ending the thread silently.
+
+A cell also holds tensor-parallel weight slices for the testbed's shard
+plane (`serving/shard.py`): ``shard_store`` keeps them on the cell's
+device, as its engines are, and ``kill()`` drops them with the engines.
 """
 
 from __future__ import annotations
@@ -44,6 +48,17 @@ def variant_seed(name: str) -> int:
     return zlib.crc32(name.encode()) % (2**31)
 
 
+def draw_params(variant: Variant, device: torch.device):
+    """The variant's weights as every cell draws them: seeded by its name,
+    drawn on ``device`` (the same bits wherever they are drawn again)."""
+    cfg = variant.config
+    if cfg is None:
+        raise ValueError(f"variant {variant.name} has no model config")
+    gen = generator_for(device, variant_seed(variant.name))
+    with torch.inference_mode():
+        return MDL.init_params(gen, cfg, device=device)
+
+
 class WorkerServer:
     """Thread-backed serving cell with heartbeat + engine hosting."""
 
@@ -59,6 +74,7 @@ class WorkerServer:
         self.max_len = max_len
         self.engines: Dict[str, InferenceEngine] = {}     # variant -> engine
         self.cold_store: Dict[str, Variant] = {}          # on "disk"
+        self.shard_store: Dict[str, object] = {}          # TP slices (HBM)
         self._alive = threading.Event()
         self._alive.set()
         self._threads = []
@@ -84,6 +100,7 @@ class WorkerServer:
         self._alive.clear()
         with self._lock:
             self.engines.clear()
+            self.shard_store.clear()
 
     def revive(self):
         """Rejoin after a crash: the node returns EMPTY (engines were
@@ -141,13 +158,9 @@ class WorkerServer:
         if not self.alive:
             raise WorkerDown(f"{self.id} is down")
         t0 = time.monotonic()
-        cfg = variant.config
-        if cfg is None:
-            raise ValueError(f"variant {variant.name} has no model config")
-        gen = generator_for(self.device, variant_seed(variant.name))
-        with torch.inference_mode():
-            params = MDL.init_params(gen, cfg, device=self.device)
-        eng = InferenceEngine(cfg, params, batch_slots=self.batch_slots,
+        params = draw_params(variant, self.device)
+        eng = InferenceEngine(variant.config, params,
+                              batch_slots=self.batch_slots,
                               max_len=self.max_len, device=self.device)
         if warm:
             eng.warmup()
@@ -160,13 +173,42 @@ class WorkerServer:
         return time.monotonic() - t0
 
     def install(self, variant_name: str, engine: InferenceEngine):
-        """Adopt a pre-built engine."""
+        """Adopt a pre-built engine (tensor-parallel deployments gather
+        their shard slices off-worker and install the result here)."""
         if not self.alive:
             raise WorkerDown(f"{self.id} is down")
         with self._lock:
             if not self.alive:
                 raise WorkerDown(f"{self.id} died during install")
             self.engines[variant_name] = engine
+
+    def alias(self, dst: str, src: str) -> bool:
+        """Serve `src`'s resident engine under the name `dst` too
+        (degraded-TP routes keep answering on the gathered engine until
+        the honest rebuild swaps in). False if `src` is not resident."""
+        with self._lock:
+            eng = self.engines.get(src)
+            if eng is None or not self.alive:
+                return False
+            self.engines[dst] = eng
+            return True
+
+    def host_shard(self, name: str, slice_tree) -> None:
+        """Hold one TP weight slice in this cell's memory. Lost on
+        kill() (unlike the cold store, which models disk)."""
+        if not self.alive:
+            raise WorkerDown(f"{self.id} is down")
+        with self._lock:
+            if not self.alive:
+                raise WorkerDown(f"{self.id} died hosting a shard")
+            self.shard_store[name] = slice_tree
+
+    def shard(self, name: str):
+        """The hosted slice, or None if this cell is dead/empty."""
+        if not self.alive:
+            return None
+        with self._lock:
+            return self.shard_store.get(name)
 
     def unload(self, variant_name: str):
         with self._lock:

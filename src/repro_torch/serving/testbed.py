@@ -38,7 +38,11 @@ Departures from the JAX testbed:
     `run_scenario` returns them as `load_errors` (the JAX testbed treats
     any RuntimeError as a dead server, and in PyTorch a failed kernel
     build or launch and an out-of-memory error are RuntimeErrors);
-  * the shard plane (`tp_degree > 1`) is not ported yet and raises;
+  * the shard plane (`tp_degree > 1`, `serving/shard.py`) catches
+    nothing: its background work (a group's build on arrival, a degraded
+    rebuild, a repartition) runs through `TestbedExecutor._spawn`, which
+    drops `WorkerDown` and reports every other exception in `errors`
+    (the JAX shard plane drops every RuntimeError);
   * `planner_coordinators` reaches the controller (the sharded numpy
     planner's site-slice coordinators; the same bits either way).
 """
@@ -76,6 +80,7 @@ from repro_torch.experiment.workload import (ARCH_COMPUTE_CAP,
                                              build_arch_apps, testbed_ladder)
 from repro_torch.serving.router import Router
 from repro_torch.serving.server import WorkerDown, WorkerServer
+from repro_torch.serving.shard import TestbedShardManager
 from repro_torch.serving.workload import make_request
 
 DETECT_POLL_S = 0.02          # sweeper poll (controller sweep, §5.1)
@@ -108,6 +113,9 @@ class TestbedExecutor(LoadExecutor):
         self.registry = registry
         # what failed other than a dead server: one line per exception
         self.errors: List[str] = errors if errors is not None else []
+        # testbed shard plane (serving/shard.py): slice loads are
+        # re-materialized partitions, not whole-model loads
+        self.shard_plane = None
         self._scales = LinkScale()                 # LinkDegrade windows
         self._locks: Dict[str, threading.Lock] = {
             sid: threading.Lock() for sid in workers}
@@ -115,13 +123,19 @@ class TestbedExecutor(LoadExecutor):
         self._outstanding = 0
         self._n_lock = threading.Lock()
 
-    def _spawn(self, fn) -> None:
+    def _spawn(self, fn, what: str) -> None:
+        """Run `fn` on a new thread. A `WorkerDown` from it means a server
+        died under the work; any other exception is reported as `what`."""
         with self._n_lock:
             self._outstanding += 1
 
         def run():
             try:
                 fn()
+            except WorkerDown:
+                pass
+            except Exception:             # noqa: BLE001
+                self.record_error(what)
             finally:
                 with self._n_lock:
                     self._outstanding -= 1
@@ -163,33 +177,30 @@ class TestbedExecutor(LoadExecutor):
 
         def work():
             t0 = time.monotonic()       # before the lock: queue_s must
-            try:                        # include the channel wait
-                with self._locks[server_id]:
-                    sleep_s, source = self._fetch_sleep(variant,
-                                                        server_id)
-                    if sleep_s > 0:
-                        time.sleep(sleep_s)
+            with self._locks[server_id]:  # include the channel wait
+                sleep_s, source = self._fetch_sleep(variant, server_id)
+                if sleep_s > 0:
+                    time.sleep(sleep_s)
+                if (self.shard_plane is not None
+                        and self.shard_plane.is_slice(variant.name)):
+                    wall = self.shard_plane.materialize_slice(
+                        app, variant, server_id)
+                else:
                     wall = self.workers[server_id].load(app, variant)
-                    ticket.source = source
-                    ticket.fetch_s = sleep_s
-                    ticket.warmup_s = wall
-                    ticket.queue_s = (time.monotonic() - t0
-                                      - sleep_s - wall)
-                    ticket.done = True
-                    if self.registry is not None:
-                        # Fig. 2b feedback: the measured wall time
-                        # calibrates the shared load-cost model
-                        self.registry.calibration.observe(
-                            variant, source, sleep_s + wall)
-                        self.registry.stage(variant.name, server_id)
-            except WorkerDown:
-                return                    # server died mid-load
-            except Exception:             # noqa: BLE001
-                self.record_error(f"load {variant.name} on {server_id}")
-                return
+                ticket.source = source
+                ticket.fetch_s = sleep_s
+                ticket.warmup_s = wall
+                ticket.queue_s = time.monotonic() - t0 - sleep_s - wall
+                ticket.done = True
+                if self.registry is not None:
+                    # Fig. 2b feedback: the measured wall time
+                    # calibrates the shared load-cost model
+                    self.registry.calibration.observe(
+                        variant, source, sleep_s + wall)
+                    self.registry.stage(variant.name, server_id)
             with self.ctl_lock:
                 on_ready(time.monotonic())
-        self._spawn(work)
+        self._spawn(work, f"load {variant.name} on {server_id}")
         return ticket
 
     def activate(self, app, variant, server_id):
@@ -201,17 +212,12 @@ class TestbedExecutor(LoadExecutor):
         """Warm backup planned: load it in the background so a later
         `activate` finds the engine resident."""
         def work():
-            try:
-                with self._locks[server_id]:
-                    if not self.workers[server_id].has(variant.name):
-                        self.workers[server_id].load(app, variant)
-                if self.registry is not None:
-                    self.registry.stage(variant.name, server_id)
-            except WorkerDown:
-                pass
-            except Exception:             # noqa: BLE001
-                self.record_error(f"warm {variant.name} on {server_id}")
-        self._spawn(work)
+            with self._locks[server_id]:
+                if not self.workers[server_id].has(variant.name):
+                    self.workers[server_id].load(app, variant)
+            if self.registry is not None:
+                self.registry.stage(variant.name, server_id)
+        self._spawn(work, f"warm {variant.name} on {server_id}")
 
     def replicate(self, app, variant, server_id, on_done=None):
         """Background checkpoint copy: pay the emulated transfer, then
@@ -228,7 +234,7 @@ class TestbedExecutor(LoadExecutor):
             if on_done is not None:
                 with self.ctl_lock:
                     on_done(time.monotonic())
-        self._spawn(work)
+        self._spawn(work, f"replicate {variant.name} to {server_id}")
 
     def join(self, timeout: float = 15.0):
         deadline = time.monotonic() + timeout
@@ -395,15 +401,11 @@ class MiniTestbed:
                  cloud_bw: Optional[float] = None,
                  replication: Optional[int] = None,
                  resilience=None,
-                 tp_degree: int = 1,
+                 tp_degree: int = 1, shard_policy: str = "auto",
                  apps: Optional[Sequence[Application]] = None,
                  device: Optional[str] = None,
                  planner_backend: str = "torch",
                  planner_coordinators: int = 0):
-        if tp_degree > 1:
-            raise NotImplementedError(
-                "tp_degree > 1 (the testbed's shard plane) is not ported "
-                "yet; see ROADMAP.md Queue 1, TP shard (serving/shard.py)")
         self.rng = random.Random(seed)
         # request-plane resilience toolkit (None = historical client
         # path): per-app breakers/budgets, per-server bulkheads, live
@@ -486,15 +488,40 @@ class MiniTestbed:
         self._timers: List[threading.Timer] = []
         self._arrival_i = 0
 
+        # --- shard plane (tp_degree >= 2): REAL tensor-parallel groups
+        # across the worker threads (serving/shard.py). tp_degree=1
+        # keeps every historical path untouched.
+        self.shards: Optional[TestbedShardManager] = None
+        if tp_degree > 1:
+            self.shards = TestbedShardManager(
+                self, tp_degree=tp_degree, policy=shard_policy)
+            self.executor.shard_plane = self.shards
+
     # -- routing observers (replace the old monkey-patch) -------------------
     def _on_route_set(self, app_id: str, server_id: str,
                       variant_name: str):
+        if (self.shards is not None
+                and self.shards.on_route(app_id, server_id,
+                                         variant_name)):
+            return      # pushed by the shard plane once the engine is up
+        self._push_route(app_id, server_id, variant_name)
+
+    def _push_route(self, app_id: str, server_id: str,
+                    variant_name: str):
         self.router.set_route(app_id, server_id, variant_name)
         self.telemetry.route_up(app_id, time.monotonic())
 
     def _accuracy_of(self, app: Application, variant_name: str) -> float:
-        """Served accuracy for a routed variant name."""
-        return app.variant_by_name(variant_name).accuracy
+        """Served accuracy for a routed variant name; falls back to the
+        shard plane's synthesized (degraded-TP) variants."""
+        try:
+            return app.variant_by_name(variant_name).accuracy
+        except KeyError:
+            if self.shards is not None:
+                v = self.shards.lookup_variant(variant_name)
+                if v is not None:
+                    return v.accuracy
+            raise
 
     def _on_route_drop(self, app_id: str):
         self.router.drop_route(app_id)
@@ -645,9 +672,17 @@ class MiniTestbed:
     def deploy(self):
         for app in self.apps:
             self.telemetry.app_seen(app)
-            with self._ctl_lock:
-                sid = self.controller.deploy_primary(app)
-            self.workers[sid].load(app, app.full)
+            if self.shards is not None:
+                # TP-k group: slice the real param tree across k
+                # workers, gather + warm the serving engine on the lead
+                # (serving/shard.py)
+                with self._ctl_lock:
+                    self.shards.deploy_group(app)
+                self.shards.deploy_real(app)
+            else:
+                with self._ctl_lock:
+                    sid = self.controller.deploy_primary(app)
+                self.workers[sid].load(app, app.full)
             for w in self.workers.values():      # cold replicas everywhere
                 for v in app.variants:
                     w.stage_cold(app, v)
@@ -752,6 +787,15 @@ class MiniTestbed:
         for app_id, (sid, _v) in routes.items():
             if sid in sids:
                 self.telemetry.mark_down(app_id, t_kill, epoch)
+                marked.add(app_id)
+        if self.shards is not None:
+            # shard groups darken when ANY member dies unless the loss
+            # degrades seamlessly on a surviving lead — same rule the
+            # simulator applies at the crash instant
+            with self._ctl_lock:
+                dark = self.shards.darkened_by(set(sids))
+            for app_id in sorted(dark - marked):
+                self.telemetry.mark_down(app_id, t_kill, epoch)
 
     def _rejoin(self, sid: str):
         with self._ctl_lock:
@@ -783,6 +827,24 @@ class MiniTestbed:
     def _on_arrival(self, app: Application, stats: dict, hz: float):
         app = self._adapt_arrival(app)
         self.telemetry.app_seen(app)
+        if self.shards is not None:
+            with self._ctl_lock:
+                try:
+                    self.shards.deploy_group(app)
+                except ValueError:
+                    stats["unplaced_arrivals"] += 1
+                    return
+            self.apps.append(app)
+            for w in self.workers.values():
+                for v in app.variants:
+                    w.stage_cold(app, v)
+            # slices + gathered engine build in the background; clients
+            # fail until the group's lead engine comes up (a member that
+            # dies mid-deploy raises WorkerDown, which _spawn drops)
+            self.executor._spawn(lambda: self.shards.deploy_real(app),
+                                 f"deploy group of {app.id}")
+            self._start_client(app, hz)
+            return
         with self._ctl_lock:
             try:
                 sid = self.controller.deploy_primary(app)
@@ -894,7 +956,10 @@ class MiniTestbed:
             per_epoch = ctl.summarize_epochs()
             cov = ctl.warm_coverage()
         traffic = self.telemetry.summarize(t_end)
+        out_shard = ({"shard": self.shards.summary()}
+                     if self.shards is not None else {})
         return {
+            **out_shard,
             "n_epochs": len(ctl.epoch_records),
             "per_epoch": per_epoch,
             "overall": overall,

@@ -168,6 +168,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.experiment.backends",
             "repro_torch.experiment.workload",
             "repro_torch.experiment.cli", "repro_torch.__main__"} <= mods
+    assert {"repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.serving.shard", "repro_torch.launch",
+            "repro_torch.launch.serve"} <= mods
 
 
 # control-plane modules of the simulator's planning path that the port

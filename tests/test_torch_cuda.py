@@ -14,8 +14,9 @@ tensor-core routes, split-K at decode) 10x those, as
 tests/test_kernels.py:117. K5 (the
 planner's masked argmax and its round kernel, with and without a latency
 mask) and the torch planner backend, the sharded planner on it included,
-are exact. The last test runs the live testbed's smoke spec on
-the card.
+are exact. The last tests run the live testbed's smoke spec on the card,
+with monoliths and with tensor-parallel groups, whose gathered weights
+are bit-equal to a monolith load's.
 """
 
 import itertools
@@ -836,3 +837,63 @@ def test_testbed_smoke_spec_on_the_card(cuda):
     assert res.traffic.n_offered > 0
     assert fa_ops.LAUNCHES and dec_ops.LAUNCHES and wkv_ops.LAUNCHES
     assert k5.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_tp_gathered_tree_is_a_monolith_load_on_the_card(cuda):
+    """The shard plane's slices, drawn and gathered on the card, are
+    bit-equal to the tree `WorkerServer.load` draws there, and an engine
+    on them gives the monolith engine's greedy tokens."""
+    from repro_torch.core.heartbeat import FailureDetector, WallClock
+    from repro_torch.experiment.workload import testbed_ladder
+    from repro_torch.serving import shard as S
+    from repro_torch.serving.engine import InferenceEngine, Request
+    from repro_torch.serving.server import WorkerServer
+
+    def tokens(eng, prompt):
+        r = Request(id="t", prompt=prompt, max_new_tokens=8)
+        assert eng.try_admit(r)
+        while eng.active_count():
+            eng.step()
+        return r.tokens
+
+    for arch in ("qwen2.5-3b", "rwkv6-3b"):
+        full = testbed_ladder(arch)[0]
+        w = WorkerServer("w", FailureDetector(WallClock()), device=cuda)
+        w.load(None, full)
+        mono = w.engines[full.name]
+        ckpt = S.checkpoint_params(full, cuda)
+        for k in (2, 3):
+            axes = S.split_axes(ckpt, k)
+            parts = [S.rank_slice(ckpt, axes, k, r) for r in range(k)]
+            got = S.gather(parts, axes)
+            pairs = zip(_leaves(got), _leaves(mono.params),
+                        strict=True)
+            assert all(a.device == b.device and torch.equal(a, b)
+                       for a, b in pairs)
+            eng = InferenceEngine(full.config, got, batch_slots=2,
+                                  max_len=96, device=cuda)
+            prompt = np.arange(3, 15, dtype=np.int32)
+            assert tokens(eng, prompt) == tokens(mono, prompt)
+
+
+def _leaves(tree):
+    from repro_torch.parallel.sharding import _tree_paths
+    return [leaf for _p, leaf in _tree_paths(tree)]
+
+
+@pytest.mark.cuda
+def test_tp_testbed_smoke_spec_on_the_card(cuda):
+    """The smoke testbed spec with tensor-parallel groups on the card:
+    recovered, no error other than a dead server, the shard summary
+    reported, and the attention kernels launched by the gathered
+    engines."""
+    from repro_torch.experiment import ExperimentSpec, run_experiment
+    for m in (fa_ops, dec_ops, wkv_ops):
+        m.LAUNCHES = 0
+    res = run_experiment(ExperimentSpec.smoke("testbed").with_(
+        n_sites=3, tp_degree=2, shard_policy="reshard"))
+    assert res.overall["recovery_rate"] == 1.0
+    assert res.extras["load_errors"] == []
+    assert res.extras["shard"]["measured"]["deploy_build_s"]["n"] == 2
+    assert fa_ops.LAUNCHES and dec_ops.LAUNCHES and wkv_ops.LAUNCHES

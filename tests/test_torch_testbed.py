@@ -104,15 +104,18 @@ def test_testbed_rejects_profile_only_apps():
 
 
 def test_unported_planes_raise():
-    """The testbed's shard plane (ROADMAP Queue 1, TP shard) still raises,
-    and the testbed refuses the autopilot as the JAX one does; the sim
-    backend runs the shard plane, the autopilot and sharded rounds with
-    coordinators."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.*TP shard"):
-        MiniTestbed(tp_degree=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*TP shard"):
-        run_experiment(ExperimentSpec(backend="testbed", device="cpu",
-                                      tp_degree=2))
+    """The testbed's shard plane is ported (tests/test_torch_tpshard.py
+    runs it): `tp_degree > 1` attaches a `TestbedShardManager` with the
+    asked policy instead of raising. The testbed refuses the autopilot as
+    the JAX one does; the sim backend runs the shard plane, the autopilot
+    and sharded rounds with coordinators."""
+    tb = MiniTestbed(tp_degree=2, shard_policy="reshard", device="cpu")
+    try:
+        assert tb.executor.shard_plane is tb.shards
+        assert (tb.shards.tp_degree, tb.shards.policy) == (2, "reshard")
+        assert tb.controller.shards is tb.shards
+    finally:
+        tb.shutdown()
     for kw in ({"tp_degree": 2}, {"planner_coordinators": 2,
                                   "planner": "sharded"},
                {"autopilot": True}):
