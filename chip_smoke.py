@@ -7,8 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
-1. build: the six CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
-   one ``nvcc`` each, all at once; no ptxas spill in K1-K3, K4's chunked
+1. build: the six CUDA kernels and K1's backward from
+   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, all at once;
+   no ptxas spill in K1 (forward and backward), K2, K3, K4's chunked
    kernels, K5's round kernel or K6's tensor-core kernels, and HMMA
    instructions in every bf16 instantiation of K1, K4's chunked kernels
    and K6;
@@ -177,10 +178,36 @@ and prints no result):
    actions; promotions and demotions); the round kernel launched wherever
    a torch-backend planner planned, the standalone argmax never; (f)
    benchmarks/ilp_vs_heuristic.py's instances: the ILP's objective at
-   least the greedy planner's on the card.
+   least the greedy planner's on the card;
+8. training on the card, K1 under autograd (``FlashAttentionFn``: K1
+   keeps each row's log-sum-exp, its backward is
+   ``csrc/flash_attention_bwd.cu``): (a) K1's backward against
+   ``flash_attention_bwd_ref`` on the same (q, k, v, o, lse, dO) and
+   against autograd through ``flash_attention_plain`` (1e-4 of the
+   largest |gradient| in f32, 2e-2 in bf16), K1's lse against the plain
+   forward's, two runs bit-equal, at qwen2.5-3b B=2 S=256 (f32 and
+   bf16), gemma3-27b S=2100 window 1024, whisper-medium's 1500x1500
+   encoder and 64x1500 cross attention, arctic-480b (G = 7),
+   recurrentgemma-2b's hd-256 local layer at S=2100 and every K1 shape
+   of (b); each timed beside its plain version, the bound (2.5x the
+   forward's operations) and SDPA's forward + backward; (b) two
+   ``make_train_step`` steps on SMOKE params of the eight archs without
+   recurrent layers, card against CPU (losses within 1e-5 relative, the
+   gradients within 1e-4 x max(1, max|g|), params moved, K1's forward and
+   backward launched by the card steps); recurrentgemma-2b and rwkv6-3b
+   raise K3's / K4's named RuntimeError; (c) qwen2.5-3b at its published
+   config in fp32, B=2 x S=256: the attention and embedding gradients
+   through the kernels against the plain attention path on the card,
+   then 3 steps, the loss finite and falling over them (the last below
+   the first); the step's host wall,
+   device ms (torch.profiler), idle share, device kernels, tokens/s and
+   peak memory; (d) ``train(scale="20m")`` crashed at step 6 and
+   resumed: its losses bit-equal to one uninterrupted run's, the last
+   checkpoint restored on the CPU bit-equal to the card's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error, times and bound.
+lists every kernel (K1's backward as ``flash_attention_bwd``) with its
+launches, error, times and bound.
 """
 
 from __future__ import annotations
@@ -329,6 +356,11 @@ KERNELS = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:29",
         "qwen2.5-3b full S=256"),
+    "flash_attention_bwd": (
+        "flash_attention_bwd",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:29",
+        "qwen2.5-3b full S=256 float32"),
     "decode_attention": (
         "decode_attention",
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
@@ -383,6 +415,10 @@ STANDALONE = ("rglru_scan", "planner_argmax", "int8_matmul")
 # routes only a planner call with a latency_fn takes (phase 7 (a)); the
 # controller, the simulator and the testbed plan no such request
 LATENCY_ONLY = ("planner_round_masked",)
+# routes only a train step takes (phase 8): K1's backward. Its "replaces"
+# is K1's TPU kernel: the JAX package has no backward kernel and takes
+# that kernel's gradient from XLA's autodiff of flash_attention_jnp
+TRAINING_ONLY = ("flash_attention_bwd",)
 INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
 SCAN_PATH = ("standalone (off the main path since the gated route): "
              "recurrentgemma-2b's RG-LRU unfused, the _gates tail then the "
@@ -448,22 +484,24 @@ def all_ops():
 def reset_counts():
     """Zero every wrapper's launch counters."""
     for m in all_ops().values():
-        for name in ("LAUNCHES", "GATED_LAUNCHES", "CHUNKED_LAUNCHES",
-                     "ROUND_LAUNCHES", "MASKED_LAUNCHES"):
+        for name in ("LAUNCHES", "BWD_LAUNCHES", "GATED_LAUNCHES",
+                     "CHUNKED_LAUNCHES", "ROUND_LAUNCHES",
+                     "MASKED_LAUNCHES"):
             if hasattr(m, name):
                 setattr(m, name, 0)
 
 
 def read_counts(routes=None):
-    """Launches since the last reset, by route (``KERNELS``): K3's gated
-    and (a, b) calls, K4's chunked prefill and recurrent decode calls, K5's
+    """Launches since the last reset, by route (``KERNELS``): K1's forward
+    and backward, K3's gated and (a, b) calls, K4's chunked prefill and recurrent decode calls, K5's
     round kernel without and with a latency mask and its standalone
     argmax apart."""
     m = all_ops()
     rg, wkv, k5 = m["rglru_scan"], m["rwkv6_scan"], m["planner_argmax"]
     out = {name: m[name].LAUNCHES for name in
            ("flash_attention", "decode_attention", "int8_matmul")}
-    out.update(rglru_gated=rg.GATED_LAUNCHES,
+    out.update(flash_attention_bwd=m["flash_attention"].BWD_LAUNCHES,
+               rglru_gated=rg.GATED_LAUNCHES,
                rglru_scan=rg.LAUNCHES - rg.GATED_LAUNCHES,
                rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
                rwkv6_scan=wkv.LAUNCHES - wkv.CHUNKED_LAUNCHES,
@@ -2669,6 +2707,498 @@ def phase_plane(failover_inputs, greedy_records):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: training on the card (K1 forward + its backward kernel)
+# ---------------------------------------------------------------------------
+
+# (a): K1's backward against its plain version; each arch's heads, KV
+# heads, head_dim and window from its published config
+# (tag, arch or None, (B, Sq, Skv, H, KVH, hd, causal, window), dtypes);
+# H/KVH/hd/window are filled from the arch's config where it is named
+TRAIN_BWD_ROWS = (
+    ("qwen2.5-3b full S=256", "qwen2.5-3b", (2, 256, 256, True),
+     ("float32", "bfloat16")),
+    ("gemma3-27b S=2100 window 1024", "gemma3-27b", (1, 2100, 2100, True),
+     ("float32",)),
+    ("whisper-medium encoder 1500x1500", "whisper-medium",
+     (1, 1500, 1500, False), ("float32",)),
+    ("whisper-medium cross 64x1500", "whisper-medium", (1, 64, 1500, False),
+     ("float32",)),
+    ("arctic-480b S=256 (G = 7)", "arctic-480b", (1, 256, 256, True),
+     ("float32",)),
+    ("recurrentgemma-2b local S=2100 (hd 256, window 2048)",
+     "recurrentgemma-2b", (1, 2100, 2100, True), ("float32",)),
+)
+# tolerance of the gradients, relative to the largest |reference|
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# operations of the backward per (query, key) pair a head and head_dim
+# element: S recomputed, dP, dV, dK, dQ, two each (the forward's 4 x 2.5)
+BWD_FLOPS = 10
+# (b): a smoke train step's batch, as tests/test_archs.py's
+TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 24
+# the kinds whose kernels have no backward yet (K3, K4)
+RECURRENT_KINDS = {"rglru": "K3 backward", "rwkv": "K4 backward"}
+# (c): qwen2.5-3b at its published widths and depth, fp32, B x S tokens
+TRAIN_FULL = dict(arch="qwen2.5-3b", B=2, S=256, steps=3)
+# the attention leaves and the embedding whose gradients (c) holds
+# against the plain attention path
+ATTN_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
+# (d): the driver's crash and resume
+TRAIN_RESUME = dict(arch="qwen2.5-3b", scale="20m", steps=12, batch=4,
+                    seq=128, ckpt_every=4, seed=SEED)
+TRAIN_CRASH_AT = 6
+
+
+def bwd_shapes(arch, dims):
+    """(B, Sq, Skv, H, KVH, hd, causal, window) of a phase 8 (a) row."""
+    from repro_torch import configs
+
+    c = configs.get_config(arch)
+    B, Sq, Skv, causal = dims
+    window = c.window_size if "local" in c.layer_kinds() else 0
+    return (B, Sq, Skv, c.num_heads, c.num_kv_heads, c.head_dim, causal,
+            window)
+
+
+def train_smoke_archs():
+    """(archs whose layers have no recurrence, the recurrent ones)."""
+    from repro_torch import configs
+
+    plain, rec = [], []
+    for arch in configs.ARCHS:
+        kinds = set(configs.get_smoke(arch).layer_kinds())
+        (rec if kinds & set(RECURRENT_KINDS) else plain).append(arch)
+    return plain, rec
+
+
+def smoke_attention_shapes(arch):
+    """The K1 calls of a smoke train step of ``arch`` (phase 8 (b)):
+    [(B, Sq, Skv, H, KVH, hd, causal, window)]."""
+    from repro_torch import configs
+
+    c = configs.get_smoke(arch)
+    B, S = TRAIN_SMOKE_B, TRAIN_SMOKE_S
+    heads = (c.num_heads, c.num_kv_heads, c.head_dim)
+    if c.is_encoder_decoder:
+        E = c.encoder_seq_len
+        return [(B, E, E, *heads, False, 0), (B, S, S, *heads, True, 0),
+                (B, S, E, *heads, False, 0)]
+    S += c.num_patch_tokens
+    kinds = set(c.layer_kinds())
+    out = []
+    if kinds - {"local"}:
+        out.append((B, S, S, *heads, True, 0))
+    if "local" in kinds:
+        out.append((B, S, S, *heads, True, c.window_size))
+    return out
+
+
+def phase_train_kernels():
+    """Phase 8 (a): K1's backward kernel against ``flash_attention_bwd_ref``
+    (same q, k, v, o, lse, dO) and against autograd through the model's
+    plain attention path, bit-equal on a repeat, timed beside its plain
+    version, the bound and SDPA's forward + backward. Also K1's lse
+    against the plain version's. Returns ``{tag: row}``."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 8)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {}
+    plan = [(tag, bwd_shapes(arch, dims), dtn)
+            for tag, arch, dims, dtns in TRAIN_BWD_ROWS for dtn in dtns]
+    plain_archs, _ = train_smoke_archs()
+    plan += [(f"{arch} smoke #{i}", shape, "float32") for arch in plain_archs
+             for i, shape in enumerate(smoke_attention_shapes(arch))]
+    for tag, (B, Sq, Skv, H, KVH, hd, causal, window), dtn in plan:
+        dt = dts[dtn]
+        q = torch.randn((B, Sq, H, hd), generator=g, device=DEV).to(dt)
+        k, v = (torch.randn((B, Skv, KVH, hd), generator=g,
+                            device=DEV).to(dt) for _ in range(2))
+        do = torch.randn((B, Sq, H, hd), generator=g, device=DEV).to(dt)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa_ops._forward(q, k, v, causal, window, True)
+        t = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+        _, lse_ref = flash_attention_ref(*t[:3], return_lse=True, **kw)
+        e_lse = err(lse, lse_ref)
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = [x.transpose(1, 2) for x in flash_attention_bwd_ref(
+            *t[:4], lse, t[4], **kw)]
+        leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        with torch.enable_grad():
+            out = L.flash_attention_plain(*leaves, **kw)
+            auto = torch.autograd.grad(out, leaves, do)
+        rel = {"ref": max(err(a, b) / float(b.abs().max().float())
+                          for a, b in zip(got, ref)),
+               "autograd": max(err(a, b) / float(b.abs().max().float())
+                               for a, b in zip(got, auto))}
+        shape = (f"q ({B},{Sq},{H},{hd}) k/v ({B},{Skv},{KVH},{hd}) {dtn} "
+                 + ("causal" if causal else "non-causal")
+                 + (f" window {window}" if window else ""))
+        log(f"  flash_attention_bwd {tag} {shape}: dq/dk/dv max_abs_err / "
+            f"max|ref| {rel['ref']:.3g} against flash_attention_bwd_ref, "
+            f"{rel['autograd']:.3g} against autograd through "
+            f"flash_attention_plain; lse max_abs_err {e_lse:.3g}; "
+            f"repeat bit-equal {bit_equal}")
+        if not (rel["ref"] < BWD_RTOL[dtn]
+                and rel["autograd"] < BWD_RTOL[dtn]):
+            raise AssertionError(f"flash_attention_bwd {tag} {dtn}: {rel} "
+                                 f">= {BWD_RTOL[dtn]}")
+        if not e_lse < 1e-4 * max(1.0, float(lse_ref.abs().max())):
+            raise AssertionError(f"K1's lse {tag} {dtn}: {e_lse}")
+        if not bit_equal:
+            raise AssertionError(f"flash_attention_bwd {tag} {dtn}: two "
+                                 "runs differ")
+        del leaves, out, auto, again
+        band = torch.ones((Sq, Skv), dtype=torch.bool, device=DEV)
+        pos_q = torch.arange(Sq, device=DEV)[:, None]
+        pos_k = torch.arange(Skv, device=DEV)[None, :]
+        if causal:
+            band &= pos_q >= pos_k
+        if window:
+            band &= pos_k > pos_q - window
+        pairs = int(band.sum())
+        lib_kw = ({"attn_mask": band} if window and window < Sq
+                  else {"is_causal": causal})
+        sq, sk, sv = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdo = do.transpose(1, 2)
+
+        def library():
+            with torch.enable_grad():
+                out = F.scaled_dot_product_attention(sq, sk, sv,
+                                                     enable_gqa=True,
+                                                     **lib_kw)
+                return torch.autograd.grad(out, (sq, sk, sv), sdo)
+
+        bwd = functools.partial(fa_ops.flash_attention_bwd, q, k, v, o, lse,
+                                do, **kw)
+        b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *got),
+                           BWD_FLOPS * hd * H * pairs * B, peak_for(dt))
+        rows[f"{tag} {dtn}"] = dict(
+            shape=shape, max_abs_err=max(err(a, b) for a, b in
+                                         zip(got, ref)),
+            rel_err=rel, lse_err=e_lse, bit_equal=bit_equal,
+            ms=graph_ms(bwd, reps=5, n=10),
+            fwd_bwd_ms=graph_ms(lambda: fa_ops.flash_attention_bwd(
+                q, k, v, *fa_ops._forward(q, k, v, causal, window, True),
+                do, **kw), reps=5, n=10),
+            plain_ms=graph_ms(lambda: flash_attention_bwd_ref(
+                *t[:4], lse, t[4], **kw), reps=2, n=5),
+            library_ms=graph_ms(library, reps=2, n=5),
+            library="scaled_dot_product_attention forward + backward",
+            bound_ms=b_ms, bound_by=b_by,
+            peak=("bf16 tensor core" if dt == torch.bfloat16
+                  else "fp32 non-tensor"))
+        r = rows[f"{tag} {dtn}"]
+        log(f"    {tag} {dtn}: backward {r['ms']:.5f} ms (K1 forward with "
+            f"lse + backward {r['fwd_bwd_ms']:.5f}), plain "
+            f"{r['plain_ms']:.5f}, SDPA forward + backward "
+            f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+        del q, k, v, o, lse, do, got, ref, t, sq, sk, sv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def grads_close(a, b, what):
+    """Each leaf of two gradient trees within 1e-4 x max(1, max|leaf of
+    a|); returns the worst ratio of error to that bound."""
+    from repro_torch.training.tree import tree_leaves
+
+    worst = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        tol = 1e-4 * max(1.0, float(x.abs().max()))
+        worst = max(worst, err(x.cpu(), y.cpu()) / tol)
+    if not worst < 1.0:
+        raise AssertionError(f"{what}: a gradient leaf is {worst:.3g}x its "
+                             "tolerance")
+    return worst
+
+
+def phase_train_smoke():
+    """Phase 8 (b): two steps of ``make_train_step`` on SMOKE params of
+    every arch whose layers have no recurrence, on the card and on the
+    CPU from the same params and ``data.batch(0)``: losses within 1e-5
+    relative, the gradients at step 0 leaf by leaf within 1e-4 x max(1,
+    max|g|), params moved; K1's forward and backward launched by the card
+    steps (counters zeroed just before them, read just after). The two
+    recurrent archs must raise K3's / K4's named RuntimeError on the card.
+    Returns the launches by arch."""
+    from repro_torch import bridge, configs
+    from repro_torch.device import generator_for
+    from repro_torch.launch.steps import (batch_to, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import model as MDL
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.tree import tree_leaves
+
+    plain, recurrent = train_smoke_archs()
+    cpu = torch.device("cpu")
+    launches = {}
+    for arch in plain + recurrent:
+        cfg = configs.get_smoke(arch)
+        opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+        step = make_train_step(cfg, opt)
+        data = SyntheticTokenStream(DataConfig(
+            cfg.vocab_size, TRAIN_SMOKE_B, TRAIN_SMOKE_S, seed=SEED))
+        batch = data.batch(0, cfg)
+        params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+        if arch in recurrent:
+            want = [item for kind, item in RECURRENT_KINDS.items()
+                    if kind in cfg.layer_kinds()][0]
+            try:
+                step(params, opt.init(params), batch)
+            except RuntimeError as e:
+                if want not in str(e):
+                    raise
+                log(f"  {arch}: the card's train step raised as it must: "
+                    f"{e}")
+                continue
+            raise AssertionError(f"{arch}: a train step through the "
+                                 "recurrent kernels did not raise")
+        params_cpu = bridge.params_from_jax(bridge.params_to_numpy(params),
+                                            cpu)
+        _, _, g_card = loss_and_grads(cfg, params, batch_to(batch, DEV))
+        _, _, g_cpu = loss_and_grads(cfg, params_cpu, batch_to(batch, cpu))
+        worst = grads_close(g_cpu, g_card, f"{arch} smoke gradients")
+        reset_counts()
+        p, s, losses = params, opt.init(params), []
+        for _ in range(2):
+            p, s, m = step(p, s, batch)
+            losses.append(float(m["loss"]))
+        got = read_counts(("flash_attention", "flash_attention_bwd"))
+        p_c, s_c, losses_c = params_cpu, opt.init(params_cpu), []
+        for _ in range(2):
+            p_c, s_c, m = step(p_c, s_c, batch)
+            losses_c.append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, losses_c))
+        moved = any(not torch.equal(a, b) for a, b in
+                    zip(tree_leaves(params), tree_leaves(p)))
+        log(f"  {arch} smoke: losses card {losses} cpu {losses_c} (rel "
+            f"{rel:.3g}); gradients at step 0 within {worst:.3g} of their "
+            f"tolerance; params moved {moved}; launches {json.dumps(got)}")
+        if not (rel < 1e-5 and moved and all(np.isfinite(losses))):
+            raise AssertionError(f"{arch} smoke train step: card {losses} "
+                                 f"cpu {losses_c}, moved {moved}")
+        if not (got["flash_attention"] and got["flash_attention_bwd"]):
+            raise AssertionError(f"{arch}: K1 forward/backward not launched "
+                                 f"by the train steps: {got}")
+        launches[arch] = got
+        del params, params_cpu, p, s, p_c, s_c, g_card, g_cpu
+    return launches
+
+
+def grad_leaves(grads):
+    """{name: gradient} of the embedding table and of the attention
+    leaves of every layer (stacked by cycle position)."""
+    out = {"embed": grads["embed"]["table"]}
+    for pos, tree in enumerate(grads["cycles"]):
+        for name in ATTN_LEAVES:
+            if name in tree.get("attn", {}):
+                out[f"cycles/{pos}/attn/{name}"] = tree["attn"][name]
+    return out
+
+
+def phase_train_full():
+    """Phase 8 (c): qwen2.5-3b at its published config (36 layers, d
+    2048, 16/2 heads, hd 128, d_ff 11008, vocab 151936), fp32, B=2 x
+    S=256, not cut. First one gradient through ``FlashAttentionFn`` and
+    one through the plain attention path on the card, held on the
+    attention leaves and the embedding; then 3 steps of
+    ``make_train_step`` on one batch (counters zeroed just before, read
+    just after): finite loss and grad norm, the last step's loss below
+    the first's. Prints host
+    wall, device ms (torch.profiler), idle share, device kernels a step,
+    tokens/s and peak memory."""
+    from repro_torch import configs
+    from repro_torch.device import generator_for
+    from repro_torch.launch.steps import (batch_to, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.models import model as MDL
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+    from repro_torch.training.optimizer import AdamW
+
+    c = TRAIN_FULL
+    cfg = configs.get_config(c["arch"]).replace(
+        param_dtype="float32", activation_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+    data = SyntheticTokenStream(DataConfig(cfg.vocab_size, c["B"], c["S"],
+                                           seed=SEED))
+    batch = batch_to(data.batch(0, cfg), DEV)
+    _, _, g_k = loss_and_grads(cfg, params, batch)
+    g_k = grad_leaves(g_k)
+    with plain_attention():
+        _, _, g_p = loss_and_grads(cfg, params, batch)
+    g_p = grad_leaves(g_p)
+    worst = {}
+    for name, a in g_k.items():
+        tol = 1e-4 * max(1.0, float(g_p[name].abs().max()))
+        worst[name] = err(a, g_p[name]) / tol
+    log(f"  gradients through FlashAttentionFn vs the plain attention path, "
+        f"error / tolerance (1e-4 x max(1, max|g|)): "
+        f"{json.dumps({k: round(v, 4) for k, v in worst.items()})}")
+    if not max(worst.values()) < 1.0:
+        raise AssertionError(f"full-width gradients disagree: {worst}")
+    del g_k, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the training driver's optimizer for a run of this many steps
+    # (launch/train.py): lr 3e-4 reached after a warmup of 10 steps (at
+    # the full rate from step 0, on an H100: losses 12.458, 10.925,
+    # 13.833)
+    opt = AdamW(lr=3e-4, warmup_steps=max(10, c["steps"] // 20),
+                total_steps=c["steps"])
+    step = make_train_step(cfg, opt)
+    state = opt.init(params)
+    reset_counts()
+    losses, gnorms, walls = [], [], []
+    for _ in range(c["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = read_counts(("flash_attention", "flash_attention_bwd"))
+    peak = torch.cuda.max_memory_allocated()
+    # device time of one more step on the same batch, by torch.profiler
+    # (the sum of its device kernels' times)
+    holder = {"p": params, "s": state}
+
+    def one():
+        holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
+
+    kern = device_kernels(one, 1)
+    dev_ms = sum(t for _, t, _c in kern)
+    n_kern = sum(cnt for _, _t, cnt in kern)
+    fa_ms = sum(t for name, t, _c in kern if "fa_" in name)
+    wall = statistics.median(walls)
+    out = {"losses": losses, "grad_norms": gnorms, "wall_ms": walls,
+           "device_ms_profiler": dev_ms, "idle_share": 1 - dev_ms / wall,
+           "device_kernels": n_kern, "attention_kernels_ms": fa_ms,
+           "tokens_per_s": c["B"] * c["S"] / (wall / 1e3),
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "grad_check": worst,
+           "top": [(k[:60], t) for k, t, _c in kern[:8]]}
+    log("  " + json.dumps({"train_full": out}))
+    log(f"  qwen2.5-3b full width fp32 B={c['B']} S={c['S']}: losses "
+        f"{losses}, grad norms {gnorms}; step host wall {wall:.3f} ms "
+        f"(median of {c['steps']}), device {dev_ms:.3f} ms (torch.profiler, "
+        f"one step), idle share {1 - dev_ms / wall:.3f}, device kernels a "
+        f"step {n_kern:.0f} (K1 forward + backward kernels {fa_ms:.3f} "
+        f"ms), {out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)}")
+    # the loss falls over the 3 steps (the last below the first); a step
+    # may rise: Adam's first updates move every weight by about lr, and
+    # the second overshoots on the fresh model (on an H100: 12.458,
+    # 10.590, 10.982 with this schedule)
+    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"full-width losses {losses}, grad norms "
+                             f"{gnorms}")
+    if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
+        raise AssertionError(f"full-width step launched {launches}")
+    del params, state, holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_train_resume():
+    """Phase 8 (d): ``train`` crashes at step 6 (a checkpoint at step 4),
+    resumes, and its losses are bit-equal to one uninterrupted run's; the
+    last checkpoint restores on the CPU as on the card, bit for bit.
+    Counters zeroed before the three runs, read after."""
+    from repro_torch import configs
+    from repro_torch.device import generator_for
+    from repro_torch.launch.train import scale_config, train
+    from repro_torch.models import model as MDL
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.tree import tree_leaves
+
+    kw = TRAIN_RESUME
+    root = ROOT / "build" / "phase8_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        reset_counts()
+        crashed = train(**kw, ckpt_dir=str(root / "a"),
+                        simulate_failure_at=TRAIN_CRASH_AT)
+        resumed = train(**kw, ckpt_dir=str(root / "a"), resume=True)
+        whole = train(**kw, ckpt_dir=str(root / "b"))
+        launches = read_counts(("flash_attention", "flash_attention_bwd"))
+        ckpt = root / "a" / f"{kw['arch']}-{kw['scale']}"
+        last = CKPT.latest_step(ckpt)
+        cfg = scale_config(configs.get_config(kw["arch"]), kw["scale"])
+        opt = AdamW()
+        a, b = (CKPT.restore_checkpoint(ckpt, last, tmpl,
+                                        opt.state_shapes(tmpl), device=dev)
+                for dev in (DEV, torch.device("cpu"))
+                for tmpl in [MDL.init_params(generator_for(dev, 1), cfg,
+                                             device=dev)])
+        same = all(torch.equal(x.cpu(), y) for x, y in zip(
+            tree_leaves((a[1], a[2].m, a[2].v)),
+            tree_leaves((b[1], b[2].m, b[2].v))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    start = kw["steps"] - len(resumed["losses"])
+    out = {"crashed_at": crashed.get("crashed_at"),
+           "resumed_from": start, "losses_resumed": resumed["losses"],
+           "losses_whole": whole["losses"], "last_checkpoint": last,
+           "cpu_restore_equal": same, "launches": launches}
+    log("  " + json.dumps({"train_resume": out}))
+    if not (crashed.get("crashed_at") == TRAIN_CRASH_AT and start == 4
+            and crashed["losses"] == whole["losses"][:TRAIN_CRASH_AT]
+            and resumed["losses"] == whole["losses"][start:]):
+        raise AssertionError(f"resumed losses are not the uninterrupted "
+                             f"run's: {out}, crashed {crashed['losses']}")
+    if not (same and a[0] == b[0] == last):
+        raise AssertionError("the checkpoint restores differently on the "
+                             "CPU")
+    if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
+        raise AssertionError(f"the driver's runs launched {launches}")
+    log(f"  crash at step {TRAIN_CRASH_AT}, resumed from step {start}: "
+        f"losses bit-equal to the uninterrupted run's ({len(resumed['losses'])}"
+        f" steps); step {last}'s checkpoint restores bit-equal on the CPU; "
+        f"launches {json.dumps(launches)}")
+    return out, launches
+
+
+def phase_train():
+    """Phase 8, (a)-(d). Returns the backward's rows and the launches of
+    K1's forward and backward by path."""
+    t0 = time.monotonic()
+    rows = phase_train_kernels()
+    log(f"  phase 8 (a) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    smoke = phase_train_smoke()
+    log(f"  phase 8 (b) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    _, full = phase_train_full()
+    log(f"  phase 8 (c) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    _, resume = phase_train_resume()
+    log(f"  phase 8 (d) took {time.monotonic() - t0:.1f} s")
+    paths = {}
+    for name in ("flash_attention", "flash_attention_bwd"):
+        paths[name] = {
+            "train smoke steps, 8 archs (phase 8b)":
+                sum(n[name] for n in smoke.values()),
+            "train qwen2.5-3b full width (phase 8c)": full[name],
+            "train driver crash + resume (phase 8d)": resume[name]}
+    return rows, paths
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the live failover testbed through the entry points, on the card
 # ---------------------------------------------------------------------------
 
@@ -2717,7 +3247,8 @@ def phase_testbed_smoke(archs=None, need=None):
         raise AssertionError(f"client MTTR {t.client_mttr_avg}")
     if not all(st.ok > 0 for st in stats.values()):
         raise AssertionError(f"an app's clients got no answer: {stats}")
-    idle = [k for k in need or KERNELS if k not in STANDALONE + LATENCY_ONLY
+    idle = [k for k in need or KERNELS
+            if k not in STANDALONE + LATENCY_ONLY + TRAINING_ONLY
             and not launches[k]]
     if idle:
         raise AssertionError(f"{idle} never launched in the testbed run")
@@ -2855,7 +3386,8 @@ def ptxas_spills(lines):
 
 # the functions that must not spill, by name fragment: K1-K3, K4's chunked
 # kernels, K5's round kernel, K6's tensor-core kernel and its combine
-NO_SPILL = {"flash_attention": ("",), "decode_attention": ("",),
+NO_SPILL = {"flash_attention": ("",), "flash_attention_bwd": ("",),
+            "decode_attention": ("",),
             "rglru_scan": ("",), "rwkv6_scan": ("wkv_chunk",),
             "planner_argmax": ("plan_round",),
             "int8_matmul": ("int8_mm_tc", "int8_combine")}
@@ -3226,6 +3758,11 @@ def main() -> int:
         KERNELS["planner_round_masked"][3]: masked_row}
     log(f"  phase 7 took {time.monotonic() - t0:.1f} s")
 
+    log("phase 8: training on the card")
+    t0 = time.monotonic()
+    rows["flash_attention_bwd"], train_paths = phase_train()
+    log(f"  phase 8 took {time.monotonic() - t0:.1f} s")
+
     kernels = []
     for name, (_pkg, src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
@@ -3235,6 +3772,8 @@ def main() -> int:
             by_path = {SCAN_PATH: scan_launches}
         elif name == "planner_argmax":
             by_path = {ARGMAX_PATH: argmax_launches}
+        elif name == "flash_attention_bwd":
+            by_path = dict(train_paths[name])
         else:
             by_path = {f"{arch}:{tag}": n[name]
                        for arch, runs in launches.items()
@@ -3252,6 +3791,7 @@ def main() -> int:
             if tb_shard[name]:
                 by_path["testbed TP shard (phase 6d)"] = tb_shard[name]
             by_path.update(plane_paths.get(name, {}))
+            by_path.update(train_paths.get(name, {}))
         main_path = sum(by_path.values())
         if not main_path:
             raise AssertionError(f"{name} was never launched on the main "
@@ -3273,7 +3813,8 @@ def main() -> int:
                                              "bound_by", "max_abs_err",
                                              "before_ms", "cold_ms",
                                              "per_app_us", "n_split",
-                                             "unmasked_ms")
+                                             "unmasked_ms", "fwd_bwd_ms",
+                                             "rel_err")
                            if k in x}
                      for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")

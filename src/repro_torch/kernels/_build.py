@@ -2,7 +2,8 @@
 and check what their wrappers pass in.
 
 Each kernel package keeps its source under ``csrc/<name>.cu`` with a
-plain ``extern "C"`` interface. On first use the source is compiled for
+plain ``extern "C"`` interface (K1's backward, ``flash_attention_bwd``,
+under ``flash_attention/csrc/``). On first use the source is compiled for
 Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the root
 of the checkout; the hash is of the source, so an edit rebuilds and a
 stale library is never loaded. Nothing is built at import time.
@@ -35,8 +36,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+# kernels whose source sits in another kernel's package
+PACKAGE_OF = {"flash_attention_bwd": "flash_attention"}
+
+
 def source(name: str) -> Path:
-    return KERNELS_DIR / name / "csrc" / f"{name}.cu"
+    return (KERNELS_DIR / PACKAGE_OF.get(name, name) / "csrc"
+            / f"{name}.cu")
 
 
 def _nvcc() -> str:
@@ -110,6 +116,20 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel entry point returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def refuse_grad(kernel: str, item: str, *tensors) -> None:
+    """Raise when autograd would record a launch of ``kernel``, whose
+    backward kernel does not exist yet (``item`` names the ROADMAP entry):
+    the ctypes launch is invisible to autograd, so the gradient would
+    silently stop there. No plain fallback is taken; on the CPU the
+    wrappers run the plain versions, which autograd differentiates."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward kernel on the card ({item}), so "
+            "autograd cannot differentiate this launch; call it under "
+            "torch.no_grad(), or train this model on the CPU")
 
 
 def rows_aligned(t: torch.Tensor) -> bool:

@@ -26,6 +26,10 @@ from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
 NAME = "decode_attention"
+# the ROADMAP entry of this kernel's backward, named when a launch under
+# grad is refused (``_build.refuse_grad``)
+GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
+             "not queued: no train step decodes")
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 32                     # one warp per query head of a group
 TILE_KEYS = 32                     # keys per tile of the split kernel
@@ -101,6 +105,8 @@ def decode_attention(q, k_cache, v_cache, lens, *, window=0):
         return o[:, None]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _build.refuse_grad("K2 (decode attention)", GRAD_ITEM, q, k_cache,
+                       v_cache)
     B, _, H, hd = q.shape
     _, Smax, KVH, _ = k_cache.shape
     if hd not in HEAD_DIMS:

@@ -7,7 +7,11 @@
 // with GQA (kv head = h / G), causal and/or sliding-window masks
 // (k > q - window), NEG_INF = -1e30 (finite) and l clamped at 1e-30, the
 // same arithmetic as the TPU kernel, in an fp32 online softmax; the output
-// is rounded once to the input dtype.
+// is rounded once to the input dtype. When the caller passes `lse` (B, H,
+// Sq) fp32, each query row's log-sum-exp of its scaled scores, m + log(l)
+// with the same clamp, is written there for the backward
+// (flash_attention_bwd.cu); a null `lse` writes nothing, so serving's
+// launches are unchanged.
 //
 // Layout: q (B, Sq, H, hd), k/v (B, Skv, KVH, hd), out (B, Sq, H, hd), read
 // through batch/sequence/head element strides with a unit last stride, so
@@ -141,9 +145,9 @@ constexpr int smem_floats() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int G, int Sq, int Skv,
-          Strides qs, Strides ks, Strides vs, Strides os, float scale,
-          int causal, int window) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int G, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+          Strides os, float scale, int causal, int window) {
   constexpr int KS = HD + 1;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -264,6 +268,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + tr + 8 * i;
     if (qp >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
+    // the grid is (query tiles, H, B); m is in units of the scaled scores
+    if (lse != nullptr && tc == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + qp] = m[i] + logf(li);
     T* orow = o + b * os.b + qp * os.s + h * os.h;
 #pragma unroll
     for (int jj = 0; jj < DJ; ++jj) orow[tc + 16 * jj] = from_f<T>(acc[i][jj] / li);
@@ -272,9 +279,9 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int Sq, int Skv, Strides qs,
-                   Strides ks, Strides vs, Strides os, int causal, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int KVH, int Sq, int Skv,
+                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   int window, cudaStream_t stream) {
   constexpr int smem = smem_floats<HD>() * (int)sizeof(float);
   auto kern = fa_kernel<T, HD>;
   // once per instantiation (thread-safe static init); one device per process
@@ -284,8 +291,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H / KVH, Sq, Skv, qs, ks,
-      vs, os, (float)(1.0 / sqrt((double)HD)), causal, window);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, H / KVH, Sq, Skv,
+      qs, ks, vs, os, (float)(1.0 / sqrt((double)HD)), causal, window);
   return cudaGetLastError();
 }
 
@@ -393,9 +400,10 @@ __device__ __forceinline__ void tile_async(bf16* dst, const bf16* src,
 template <int HD>
 __global__ void __launch_bounds__(TC_NT)
 fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int G, int Sq,
-             int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-             float scale_log2, int causal, int window) {
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int G, int Sq, int Skv, Strides qs,
+             Strides ks, Strides vs, Strides os, float scale_log2,
+             int causal, int window) {
   constexpr int BKT = tc_bk<HD>();
   constexpr int NCH = HD / 8;   // 16-byte chunks a row
   constexpr int NS = BKT / 8;   // score n-tiles of a warp
@@ -561,6 +569,17 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     l[i] = fmaxf(l[i], 1e-30f);
   }
+  // m is in log2 units of the scaled scores: lse = m ln 2 + ln l. The
+  // grid is (H, query tiles, B); one lane of each quad writes its 2 rows
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qp = r0 + 8 * i;
+      if (qp < Sq)
+        lse[((long long)b * gridDim.x + h) * Sq + qp] =
+            m[i] * 0.6931471805599453f + logf(l[i]);
+    }
+  }
   // normalize into this warp's own Q rows, then store 16 bytes a lane
   const int orow = 16 * warp + lane / 4;
 #pragma unroll
@@ -582,9 +601,9 @@ fa_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int KVH, int Sq, int Skv, Strides qs,
-                      Strides ks, Strides vs, Strides os, int causal,
-                      int window, cudaStream_t stream) {
+                      float* lse, int B, int H, int KVH, int Sq, int Skv,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      int causal, int window, cudaStream_t stream) {
   constexpr int smem = tc_smem_bytes<HD>();
   auto kern = fa_tc_kernel<HD>;
   // once per instantiation (thread-safe static init); one device per process
@@ -594,47 +613,47 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   dim3 grid(H, (Sq + TC_BQ - 1) / TC_BQ, B);
   kern<<<grid, TC_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H / KVH, Sq, Skv,
-      qs, ks, vs, os, (float)(1.4426950408889634 / sqrt((double)HD)), causal,
-      window);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H / KVH, Sq,
+      Skv, qs, ks, vs, os, (float)(1.4426950408889634 / sqrt((double)HD)),
+      causal, window);
   return cudaGetLastError();
 }
 
 // float32 takes the scalar kernel, bfloat16 the tensor-core kernel
 template <typename T, int HD>
 cudaError_t launch_dt(const void* q, const void* k, const void* v, void* o,
-                      int B, int H, int KVH, int Sq, int Skv, Strides qs,
-                      Strides ks, Strides vs, Strides os, int causal,
-                      int window, cudaStream_t stream) {
+                      float* lse, int B, int H, int KVH, int Sq, int Skv,
+                      Strides qs, Strides ks, Strides vs, Strides os,
+                      int causal, int window, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value)
-    return launch<float, HD>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                             causal, window, stream);
+    return launch<float, HD>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks, vs,
+                             os, causal, window, stream);
   else
-    return launch_tc<HD>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
+    return launch_tc<HD>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks, vs, os,
                          causal, window, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int KVH, int Sq, int Skv,
-                        Strides qs, Strides ks, Strides vs, Strides os,
+                        void* o, float* lse, int B, int H, int KVH, int Sq,
+                        int Skv, Strides qs, Strides ks, Strides vs, Strides os,
                         int causal, int window, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch_dt<T, 16>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                           causal, window, stream);
+      return launch_dt<T, 16>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks,
+                              vs, os, causal, window, stream);
     case 32:
-      return launch_dt<T, 32>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                           causal, window, stream);
+      return launch_dt<T, 32>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks,
+                              vs, os, causal, window, stream);
     case 64:
-      return launch_dt<T, 64>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                           causal, window, stream);
+      return launch_dt<T, 64>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks,
+                              vs, os, causal, window, stream);
     case 128:
-      return launch_dt<T, 128>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                            causal, window, stream);
+      return launch_dt<T, 128>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks,
+                               vs, os, causal, window, stream);
     case 256:
-      return launch_dt<T, 256>(q, k, v, o, B, H, KVH, Sq, Skv, qs, ks, vs, os,
-                            causal, window, stream);
+      return launch_dt<T, 256>(q, k, v, o, lse, B, H, KVH, Sq, Skv, qs, ks,
+                               vs, os, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -642,13 +661,15 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. Returns the
-// cudaError_t of the launch (0 on success); never synchronizes.
+// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. `lse` is
+// null or (B, H, Sq) contiguous fp32. Returns the cudaError_t of the launch
+// (0 on success); never synchronizes.
 extern "C" int faillite_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int KVH, int Sq, int Skv, int hd, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, long long osb, long long oss, long long osh,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int dtype, int B, int H, int KVH, int Sq, int Skv, int hd, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, long long osb, long long oss,
+    long long osh,
     int causal, int window, void* stream) {
   if (KVH <= 0 || H % KVH != 0 || B <= 0 || Sq <= 0 || Skv <= 0)
     return (int)cudaErrorInvalidValue;
@@ -656,10 +677,13 @@ extern "C" int faillite_flash_attention(
       os{osb, oss, osh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_hd<float>(hd, q, k, v, o, B, H, KVH, Sq, Skv, qs, ks,
-                                   vs, os, causal, window, st);
+    return (int)dispatch_hd<float>(hd, q, k, v, o, static_cast<float*>(lse),
+                                   B, H, KVH, Sq, Skv, qs, ks, vs, os, causal,
+                                   window, st);
   if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KVH, Sq, Skv,
-                                           qs, ks, vs, os, causal, window, st);
+    return (int)dispatch_hd<__nv_bfloat16>(hd, q, k, v, o,
+                                           static_cast<float*>(lse), B, H, KVH,
+                                           Sq, Skv, qs, ks, vs, os, causal,
+                                           window, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,8 @@
-"""Plain PyTorch version of the flash attention kernel (the port of
-``repro/kernels/flash_attention/ref.py``): dense masked softmax."""
+"""Plain PyTorch versions of the flash attention kernels: the forward
+(the port of ``repro/kernels/flash_attention/ref.py``, a dense masked
+softmax, with its row log-sum-exp on request) and the backward, which
+the JAX package takes from XLA's autodiff of ``flash_attention_jnp`` and
+the port from ``csrc/flash_attention_bwd.cu``."""
 
 from __future__ import annotations
 
@@ -10,22 +13,64 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0):
-    """q: (B,H,Sq,hd); k,v: (B,KVH,Skv,hd). Naive materialized softmax."""
-    B, H, Sq, hd = q.shape
-    _, KVH, Skv, _ = k.shape
-    G = H // KVH
-    kx = k.repeat_interleave(G, dim=1)
-    vx = v.repeat_interleave(G, dim=1)
-    s = torch.einsum("bhqk,bhsk->bhqs", q.float(), kx.float()) / math.sqrt(hd)
-    qp = torch.arange(Sq, device=q.device)[:, None]
-    kp = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+def _mask(Sq, Skv, causal, window, device):
+    qp = torch.arange(Sq, device=device)[:, None]
+    kp = torch.arange(Skv, device=device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=device)
     if causal:
         mask &= qp >= kp
     if window > 0:
         mask &= kp > qp - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return mask
+
+
+def _scores(q, k, causal, window):
+    """(scaled scores (B,H,Sq,Skv) fp32 with NEG_INF where masked, mask,
+    k's heads expanded to q's)."""
+    B, H, Sq, hd = q.shape
+    _, KVH, Skv, _ = k.shape
+    kx = k.repeat_interleave(H // KVH, dim=1)
+    s = torch.einsum("bhqk,bhsk->bhqs", q.float(), kx.float()) / math.sqrt(hd)
+    mask = _mask(Sq, Skv, causal, window, q.device)
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, return_lse=False):
+    """q: (B,H,Sq,hd); k,v: (B,KVH,Skv,hd). Naive materialized softmax.
+    With ``return_lse``, also the row log-sum-exp of the scaled scores
+    (B,H,Sq) fp32, the statistic the backward reads."""
+    s, _ = _scores(q, k, causal, window)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqs,bhsk->bhqk", p, vx.float())
-    return o.to(q.dtype)
+    vx = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
+    o = torch.einsum("bhqs,bhsk->bhqk", p, vx.float()).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if return_lse else o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0):
+    """FlashAttention-2's backward on a dense masked softmax: the plain
+    version of ``flash_attention_bwd.cu``. q, o, do: (B,H,Sq,hd); k, v:
+    (B,KVH,Skv,hd); lse (B,H,Sq) fp32 from the forward. Returns (dq, dk,
+    dv) in the inputs' dtypes; dk and dv sum over each KV head's group
+    of G = H / KVH query heads.
+
+        P = exp(S - lse), D = rowsum(dO * O), dS = P * (dO V^T - D),
+        dV = P^T dO, dK = scale dS^T Q, dQ = scale dS K.
+    """
+    B, H, Sq, hd = q.shape
+    _, KVH, Skv, _ = k.shape
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    s, mask = _scores(q, k, causal, window)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]),
+                    torch.zeros_like(s))
+    dof, of = do.float(), o.float()
+    D = (dof * of).sum(-1)
+    vx = v.float().repeat_interleave(G, dim=1)
+    kx = k.float().repeat_interleave(G, dim=1)
+    ds = p * (torch.einsum("bhqd,bhsd->bhqs", dof, vx) - D[..., None])
+    dq = torch.einsum("bhqs,bhsd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqs,bhqd->bhsd", ds, q.float()) * scale
+    dv = torch.einsum("bhqs,bhqd->bhsd", p, dof)
+    dk = dk.reshape(B, KVH, G, Skv, hd).sum(2)
+    dv = dv.reshape(B, KVH, G, Skv, hd).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

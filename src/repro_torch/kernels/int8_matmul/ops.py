@@ -32,6 +32,10 @@ from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
 
 NAME = "int8_matmul"
+# the ROADMAP entry of this kernel's backward, named when a launch under
+# grad is refused (``_build.refuse_grad``)
+GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
+             "not queued: no model calls K6")
 DTYPES = _build.DTYPE_CODES
 # the bf16 kernel's tiles (csrc TcDecode, TcPrefill): (rows, columns) a
 # block at decode (M <= DECODE_M) and above
@@ -122,6 +126,7 @@ def int8_matmul(x, w_q, scale, *, out_dtype=None):
         return int8_matmul_torch(x, w_q, scale, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    _build.refuse_grad("K6 (int8 matmul)", GRAD_ITEM, x, scale)
     if x.stride(1) != 1 or not w_q.is_contiguous() \
             or not scale.is_contiguous():
         raise ValueError("x needs a unit column stride, w_q and scale must "

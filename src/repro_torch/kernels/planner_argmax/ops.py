@@ -27,6 +27,10 @@ import torch
 from repro_torch.kernels import _build
 
 NAME = "planner_argmax"
+# the ROADMAP entry of this kernel's backward, named when a launch under
+# grad is refused (``_build.refuse_grad``)
+GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
+             "not queued: nothing differentiates the planner")
 
 # launches of either K5 kernel, of the round kernel alone, and of the
 # round kernel with a latency mask, since the last reset; read and reset
@@ -94,6 +98,7 @@ def masked_argmax(values: torch.Tensor, mask: torch.Tensor):
         return masked_argmax_torch(values, mask)
     if values.device.type != "cuda":
         raise ValueError(f"unsupported device {values.device}")
+    _build.refuse_grad("K5 (masked argmax)", GRAD_ITEM, values)
     one = values.dim() == 1
     v2 = values.unsqueeze(0) if one else values
     m2 = mask.unsqueeze(0) if one else mask
@@ -170,6 +175,8 @@ def plan_round(free, head, budget, cap, alive, excl_off, excl_row, dm,
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dt} {shape}; "
                              f"got {t.dtype} {tuple(t.shape)}")
+    _build.refuse_grad("K5 (planning round)", GRAD_ITEM, free, head,
+                       budget, cap, dm, dmc)
     out = torch.empty((3, A), dtype=torch.int32, device=free.device)
     stamp = torch.empty(S, dtype=torch.int32, device=free.device)
     fn = _round_lib()

@@ -29,6 +29,10 @@ from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_ref,
                                                 rglru_scan_ref)
 
 NAME = "rglru_scan"
+# the ROADMAP entry of this kernel's backward, named when a launch under
+# grad is refused (``_build.refuse_grad``)
+GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
+             "row 'K3 backward', queued for recurrentgemma-2b's train step")
 DTYPES = _build.DTYPE_CODES
 
 # wrapper calls that launched, either route, and those of the gated
@@ -111,6 +115,7 @@ def rglru_scan(a, b, h0, *, h_last=None):
         return _cpu_result(*rglru_scan_ref(a, b, h0), h_last)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
+    _build.refuse_grad("K3 (RG-LRU scan)", GRAD_ITEM, a, b, h0)
     B, S, W = a.shape
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous (B,S,W)")
@@ -156,6 +161,8 @@ def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
                            h_last)
     if xb.device.type != "cuda":
         raise ValueError(f"unsupported device {xb.device}")
+    _build.refuse_grad("K3 (RG-LRU scan, gated route)", GRAD_ITEM, ga, gx,
+                       xb, log_lambda, h0)
     B, S, _ = xb.shape
     if any(t.stride(-1) != 1 for t in (ga, gx, xb)) \
             or not log_lambda.is_contiguous():

@@ -25,6 +25,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
 
 NAME = "rwkv6_scan"
+# the ROADMAP entry of this kernel's backward, named when a launch under
+# grad is refused (``_build.refuse_grad``)
+GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
+             "row 'K4 backward', queued for rwkv6-3b's train step")
 HEAD_SIZES = (8, 16, 32, 64)
 CHUNK = 32                 # steps per chunk of the prefill route (csrc)
 DTYPES = _build.DTYPE_CODES
@@ -126,6 +130,7 @@ def wkv6(r, k, v, lw, u, s0, *, s_out=None):
         return y, s_out
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    _build.refuse_grad("K4 (WKV-6 scan)", GRAD_ITEM, r, k, v, lw, u, s0)
     B, S, nh, hs = r.shape
     if hs not in HEAD_SIZES:
         raise ValueError(f"head size {hs} not in {HEAD_SIZES}")

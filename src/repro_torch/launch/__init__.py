@@ -1,2 +1,3 @@
 """Entry points of the port (port of ``repro/launch/``): the serving
-entry point `serve.py`."""
+entry point `serve.py`, the step builders `steps.py` and the training
+driver `train.py`."""

@@ -27,7 +27,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.model import _tree_map, init_stacked
+from repro_torch.models.model import _tree_map, init_stacked, unstack
 
 
 def _init_enc_layer(gen, cfg, dev):
@@ -91,9 +91,8 @@ def encode(params, cfg, frame_embeds):
     """frame_embeds: (B, T, d_model) from the stub frontend."""
     x = frame_embeds.to(cfg.adtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.num_encoder_layers):
-        x = _enc_layer_fwd(_layer(params["enc_layers"], i), cfg, x,
-                           positions)
+    for p in unstack(params["enc_layers"], cfg.num_encoder_layers):
+        x = _enc_layer_fwd(p, cfg, x, positions)
     return L.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -160,9 +159,8 @@ def forward_features(params, cfg, tokens, frame_embeds):
     enc_out = encode(params, cfg, frame_embeds)
     x = L.embed(params["embed"], tokens).to(cfg.adtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.num_decoder_layers):
-        x = _dec_layer_fwd(_layer(params["dec_layers"], i), cfg, x,
-                           positions, enc_out=enc_out)
+    for p in unstack(params["dec_layers"], cfg.num_decoder_layers):
+        x = _dec_layer_fwd(p, cfg, x, positions, enc_out=enc_out)
     x = L.layernorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

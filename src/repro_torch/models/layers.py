@@ -5,8 +5,10 @@ shapes, so a params bridge maps them 1:1. ``logical_constraint`` is
 dropped: it is a no-op on one device.
 
 ``flash_attention`` and ``decode_attention`` send a CUDA tensor to the
-hand-written kernels and a CPU tensor to ``flash_attention_blocked`` (or
-``banded_local_attention`` when a sliding window binds) /
+hand-written kernels (K1 under autograd through ``FlashAttentionFn``,
+whose backward is a kernel too) and a CPU tensor to
+``flash_attention_blocked`` (or ``banded_local_attention`` when a sliding
+window binds) /
 ``decode_attention_dense``, the ports of ``flash_attention_jnp``,
 ``banded_local_attention_jnp`` and ``decode_attention_jnp``, which scale q
 in the model dtype as JAX does.
@@ -161,8 +163,12 @@ def _qkv(params, cfg, x, positions, rope_on=True, theta=None):
 def flash_attention(q, k, v, *, causal=True, window=0, kv_block=None):
     """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd). ``kv_block`` is
     the plain path's block of keys (the JAX caller's; by default from
-    Sq)."""
+    Sq). On the card, a call that autograd records goes through
+    ``FlashAttentionFn`` (K1, then its backward kernel)."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return flash_ops.FlashAttentionFn.apply(q, k, v, causal, window)
         return flash_ops.flash_attention(q, k, v, causal=causal,
                                          window=window)
     return flash_attention_plain(q, k, v, causal=causal, window=window,

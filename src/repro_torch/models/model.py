@@ -187,6 +187,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     return p
 
 
+def unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layers of a stacked tree, as views through one ``unbind``
+    a leaf. Under autograd each leaf's gradient is then one stack of the
+    layers' gradients, where indexing every layer (``t[c]``) would
+    zero-fill and add a whole copy of the stack per layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: p[c] for k, p in parts.items()} for c in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [type(tree)(p[c] for p in parts) for c in range(n)]
+    return list(tree.unbind(0))
+
+
 def _layers(cfg, params, cache=None) -> Iterator[Tuple[str, Dict, Dict]]:
     """(kind, layer params, layer cache) in stack order; views, not copies.
 
@@ -196,10 +210,10 @@ def _layers(cfg, params, cache=None) -> Iterator[Tuple[str, Dict, Dict]]:
     cyc_c = cache["cycles"] if cache is not None else [None] * len(cyc_p)
     if cyc_p:
         n = next(iter(cyc_p[0]["norm1"].values())).shape[0]
+        per = [unstack(p_pos, n) for p_pos in cyc_p]
         for c in range(n):
-            for kind, p_pos, c_pos in zip(cfg.block_pattern, cyc_p, cyc_c):
-                yield (kind, _tree_map(lambda t: t[c], p_pos),
-                       None if c_pos is None else
+            for kind, p_pos, c_pos in zip(cfg.block_pattern, per, cyc_c):
+                yield (kind, p_pos[c], None if c_pos is None else
                        _tree_map(lambda t: t[c], c_pos))
     tail_c = cache["tail"] if cache is not None else [None] * len(
         params["tail"])

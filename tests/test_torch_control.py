@@ -171,6 +171,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.parallel", "repro_torch.parallel.sharding",
             "repro_torch.serving.shard", "repro_torch.launch",
             "repro_torch.launch.serve"} <= mods
+    assert {"repro_torch.training", "repro_torch.training.data",
+            "repro_torch.training.optimizer",
+            "repro_torch.training.checkpoint", "repro_torch.training.tree",
+            "repro_torch.models.lm", "repro_torch.launch.steps",
+            "repro_torch.launch.train"} <= mods
 
 
 # control-plane modules of the simulator's planning path that the port
@@ -201,6 +206,14 @@ SERVING_COPIES = ("serving/workload.py", "experiment/workload.py",
 def test_testbed_modules_are_verbatim_copies(rel):
     orig = (ROOT / "src" / "repro" / rel).read_text()
     copy = (ROOT / "src" / "repro_torch" / rel).read_text()
+    assert copy.replace("repro_torch", "repro") == orig
+
+
+def test_training_data_is_a_verbatim_copy():
+    """``training/data.py`` (numpy): the seekable token stream the
+    training driver and its resume check rely on."""
+    orig = (ROOT / "src" / "repro" / "training" / "data.py").read_text()
+    copy = (ROOT / "src" / "repro_torch" / "training" / "data.py").read_text()
     assert copy.replace("repro_torch", "repro") == orig
 
 

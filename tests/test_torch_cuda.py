@@ -897,3 +897,137 @@ def test_tp_testbed_smoke_spec_on_the_card(cuda):
     assert res.extras["load_errors"] == []
     assert res.extras["shard"]["measured"]["deploy_build_s"]["n"] == 2
     assert fa_ops.LAUNCHES and dec_ops.LAUNCHES and wkv_ops.LAUNCHES
+
+
+# K1's backward: the shapes of a smoke train step (phase 8 (b)) and a few
+# at the main path's widths, (B, Sq, Skv, H, KVH, hd, causal, window)
+BWD_SWEEP = [
+    (2, 24, 24, 4, 2, 16, True, 0),          # smoke, G = 2
+    (2, 24, 24, 4, 4, 16, True, 0),          # qwen1.5-4b / whisper, G = 1
+    (2, 24, 24, 8, 2, 16, True, 0),          # qwen3-32b smoke, G = 4
+    (2, 24, 24, 4, 2, 16, True, 8),          # gemma3 local smoke
+    (2, 24, 24, 4, 4, 16, False, 0),         # whisper smoke encoder/cross
+    (2, 32, 32, 4, 2, 16, True, 0),          # llava smoke, 8 patches
+    (2, 100, 100, 16, 2, 128, True, 0),      # qwen2.5-3b heads, ragged
+    (1, 77, 77, 14, 2, 64, True, 0),         # G = 7
+    (1, 130, 130, 10, 1, 256, True, 64),     # hd 256, window binds
+    (1, 33, 150, 4, 4, 32, False, 0),        # non-causal, Sq != Skv
+]
+BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain_on_cuda(cuda, dtype):
+    """K1's backward kernel against ``flash_attention_bwd_ref`` on the
+    same (q, k, v, o, lse, dO), K1's lse against the plain forward's,
+    and two runs bit-equal (no atomics). Tolerance relative to the
+    largest |gradient|: f32 1e-4, bf16 2e-2."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_ref
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for B, Sq, Skv, H, KVH, hd, causal, window in BWD_SWEEP:
+        q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+        k = torch.randn(B, Skv, KVH, hd, generator=g, device=cuda).to(dt)
+        v = torch.randn(B, Skv, KVH, hd, generator=g, device=cuda).to(dt)
+        do = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dt)
+        kw = dict(causal=causal, window=window)
+        o, lse = fa_ops._forward(q, k, v, causal, window, True)
+        t = [x.transpose(1, 2) for x in (q, k, v, o, do)]
+        _, lse_ref = flash_attention_ref(*t[:3], return_lse=True, **kw)
+        assert _max_err(lse, lse_ref) < 1e-4 * float(lse_ref.abs().max())
+        got = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = fa_ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = flash_attention_bwd_ref(*t[:4], lse, t[4], **kw)
+        for a, b in zip(got, ref):
+            assert _max_err(a, b.transpose(1, 2)) < \
+                BWD_RTOL[dtype] * float(b.abs().max().float()), \
+                (B, Sq, Skv, H, KVH, hd, causal, window)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_model_backward_on_card_reaches_every_leaf(cuda):
+    """The fault this guards: on the card the attention kernels were
+    ctypes launches autograd never saw, so ``loss.backward()`` left
+    wq/wk/wv/bq/bk/bv and every leaf before the first attention without
+    a gradient. Through ``FlashAttentionFn`` every leaf of a qwen2.5-3b
+    SMOKE tree gets one, within 1e-4 x max(1, max|g|) of the CPU's, and
+    K1's forward and backward each launch once a layer."""
+    from repro_torch.launch.steps import batch_to
+    from repro_torch.models.lm import lm_loss
+    from repro_torch.training.tree import tree_leaves
+    cfg = configs.get_smoke("qwen2.5-3b")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(2)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24))
+             .astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (2, 24))
+             .astype(np.int32)}
+    grads = {}
+    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+    for dev in (cuda, cpu):
+        params = MDL.init_params(generator_for(cpu, 0), cfg, device=cpu)
+        params = MDL._tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss, _ = lm_loss(params, cfg, batch_to(batch, dev))
+        loss.backward()
+        grads[dev.type] = [p.grad for p in tree_leaves(params)]
+    assert fa_ops.LAUNCHES == fa_ops.BWD_LAUNCHES == cfg.num_layers
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert a is not None and bool(torch.any(a != 0))
+        assert _max_err(a.cpu(), b) < 1e-4 * max(1.0, float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_kernels_without_a_backward_refuse_grad_on_cuda(cuda):
+    """K2-K6 raise a RuntimeError naming the missing backward kernel when
+    autograd would record a launch, instead of dropping the gradient; a
+    train step of recurrentgemma-2b (K3) or rwkv6-3b (K4) raises on the
+    card."""
+    from repro_torch.kernels.int8_matmul import ops as k6
+    from repro_torch.kernels.planner_argmax import ops as k5
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.training.optimizer import AdamW
+    f = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=cuda, dtype=f).requires_grad_()
+
+    lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    calls = {
+        "K2": lambda: dec_ops.decode_attention(rnd(2, 1, 4, 16),
+                                               rnd(2, 8, 2, 16),
+                                               rnd(2, 8, 2, 16), lens),
+        "K3": lambda: rglru_ops.rglru_scan(rnd(1, 4, 8), rnd(1, 4, 8),
+                                           torch.zeros(1, 8, device=cuda)),
+        "K3 (RG-LRU scan, gated": lambda: rglru_ops.rglru_gated_scan(
+            rnd(1, 4, 8), rnd(1, 4, 8), rnd(1, 4, 8),
+            torch.zeros(8, device=cuda), torch.zeros(1, 8, device=cuda)),
+        "K4": lambda: wkv_ops.wkv6(
+            rnd(1, 4, 2, 8), rnd(1, 4, 2, 8), rnd(1, 4, 2, 8),
+            -torch.rand(1, 4, 2, 8, device=cuda), rnd(2, 8),
+            torch.zeros(1, 2, 8, 8, device=cuda)),
+        "K5 (masked argmax)": lambda: k5.masked_argmax(
+            rnd(6), torch.ones(6, dtype=torch.bool, device=cuda)),
+        "K6": lambda: k6.int8_matmul(
+            rnd(2, 16), torch.ones(16, 8, dtype=torch.int8, device=cuda),
+            torch.ones(8, device=cuda)),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=r"no backward kernel") as e:
+            call()
+        assert name in str(e.value) and "ROADMAP Queue 2" in str(e.value)
+        with torch.no_grad():
+            call()                       # no grad recorded: it launches
+    for arch, item in (("recurrentgemma-2b", "K3 backward"),
+                       ("rwkv6-3b", "K4 backward")):
+        cfg = configs.get_smoke(arch)
+        params = MDL.init_params(generator_for(cuda, 0), cfg, device=cuda)
+        opt = AdamW()
+        batch = {"tokens": np.zeros((2, 8), np.int32),
+                 "labels": np.zeros((2, 8), np.int32)}
+        with pytest.raises(RuntimeError, match=item):
+            make_train_step(cfg, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
