@@ -11,8 +11,9 @@ and prints no result):
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, all at once;
    no ptxas spill in K1 (forward and backward), K2, K3, K4's chunked
    kernels, K5's round kernel or K6's tensor-core kernels, and HMMA
-   instructions in every bf16 instantiation of K1, K4's chunked kernels
-   and K6;
+   instructions in every bf16 instantiation of K1, every dK/dV and dQ
+   instantiation of K1's backward (bf16, and f32 as 3xTF32), K4's
+   chunked kernels and K6;
 2. kernels: each against its plain PyTorch version on the card —
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
    tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
@@ -189,8 +190,13 @@ and prints no result):
    bf16), gemma3-27b S=2100 window 1024, whisper-medium's 1500x1500
    encoder and 64x1500 cross attention, arctic-480b (G = 7),
    recurrentgemma-2b's hd-256 local layer at S=2100 and every K1 shape
-   of (b); each timed beside its plain version, the bound (2.5x the
-   forward's operations) and SDPA's forward + backward; (b) two
+   of (b), each with ``plan_bwd``'s choice (the GQA group split across
+   blocks or not) and block count; each timed beside its plain version
+   and the bound (2.5x the forward's operations; f32 at the 3xTF32
+   rate), and K1's forward + backward beside SDPA's forward + backward;
+   then both of ``plan_bwd``'s plans timed in turns at shapes on both
+   sides of its split rule, their gradients within the same tolerance;
+   (b) two
    ``make_train_step`` steps on SMOKE params of the eight archs without
    recurrent layers, card against CPU (losses within 1e-5 relative, the
    gradients within 1e-4 x max(1, max|g|), params moved, K1's forward and
@@ -199,10 +205,12 @@ and prints no result):
    config in fp32, B=2 x S=256: the attention and embedding gradients
    through the kernels against the plain attention path on the card,
    then 3 steps, the loss finite and falling over them (the last below
-   the first); the step's host wall,
-   device ms (torch.profiler), idle share, device kernels, tokens/s and
-   peak memory; (d) ``train(scale="20m")`` crashed at step 6 and
-   resumed: its losses bit-equal to one uninterrupted run's, the last
+   the first); the step's host wall, device ms (torch.profiler), idle
+   share, device kernels, K1's share of the device time by kernel name,
+   tokens/s and peak memory, the walls of 3 more steps and the caching
+   allocator's retries, allocations and frees a step; (d)
+   ``train(scale="20m")`` crashed at step
+   6 and resumed: its losses bit-equal to one uninterrupted run's, the last
    checkpoint restored on the CPU bit-equal to the card's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -236,11 +244,14 @@ SRC = ROOT / "src"
 DEV = torch.device("cuda")
 
 # H100 SXM data-sheet peaks (dense): HBM rate, bf16 tensor-core rate (K1
-# and K2 at the main path's bf16 shapes) and fp32 rate outside the tensor
-# cores (K3 and K4 compute in fp32 FMAs)
+# and K2 at the main path's bf16 shapes), fp32 rate outside the tensor
+# cores (K3 and K4 compute in fp32 FMAs), and the TF32 tensor-core rate
+# (495 TFLOP/s) over the three TF32 products of one 3xTF32 fp32 product
+# (K1's backward in f32)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_ATOL = 1e-5           # K3, tests/test_kernels.py:77-78
 # K3's gated route: 1e-5 of the largest |h| (at least 1). Its gates are
@@ -2728,6 +2739,17 @@ TRAIN_BWD_ROWS = (
     ("recurrentgemma-2b local S=2100 (hd 256, window 2048)",
      "recurrentgemma-2b", (1, 2100, 2100, True), ("float32",)),
 )
+# the rows' backward device ms before the tensor-core redesign (the
+# scalar kernel; PERF.md §6, on an H100 80GB HBM3 at 700 W)
+BWD_BEFORE_MS = {
+    "qwen2.5-3b full S=256 float32": 0.85909,
+    "qwen2.5-3b full S=256 bfloat16": 0.86044,
+    "gemma3-27b S=2100 window 1024 float32": 5.22133,
+    "whisper-medium encoder 1500x1500 float32": 1.61975,
+    "whisper-medium cross 64x1500 float32": 0.33814,
+    "arctic-480b S=256 (G = 7) float32": 0.85630,
+    "recurrentgemma-2b local S=2100 (hd 256, window 2048) float32": 15.35979,
+}
 # tolerance of the gradients, relative to the largest |reference|
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # operations of the backward per (query, key) pair a head and head_dim
@@ -2737,8 +2759,41 @@ BWD_FLOPS = 10
 TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 24
 # the kinds whose kernels have no backward yet (K3, K4)
 RECURRENT_KINDS = {"rglru": "K3 backward", "rwkv": "K4 backward"}
-# (c): qwen2.5-3b at its published widths and depth, fp32, B x S tokens
-TRAIN_FULL = dict(arch="qwen2.5-3b", B=2, S=256, steps=3)
+# (a), the launch plan: K1's backward under both of plan_bwd's plans for
+# the dK/dV pass, at shapes on both sides of its split rule (each tag
+# ends in the unsplit grid's blocks), causal: (tag, (B, S, H, KVH, hd,
+# window), dtypes)
+BWD_PLAN_ROWS = (
+    ("qwen2.5-3b heads B=2 S=256 (16)", (2, 256, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=4 S=1024 (128)", (4, 1024, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=5 S=1024 (160)", (5, 1024, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=6 S=1024 (192)", (6, 1024, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=7 S=1024 (224)", (7, 1024, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=8 S=1024 (256)", (8, 1024, 16, 2, 128, 0),
+     ("float32", "bfloat16")),
+    ("qwen2.5-3b heads B=3 S=2048 (192)", (3, 2048, 16, 2, 128, 0),
+     ("float32",)),
+    ("qwen2.5-3b heads B=4 S=2048 (256)", (4, 2048, 16, 2, 128, 0),
+     ("float32",)),
+    ("arctic-480b S=256 G = 7 (32)", (1, 256, 56, 8, 128, 0),
+     ("float32",)),
+    ("arctic-480b B=2 S=1024 G = 7 (256)", (2, 1024, 56, 8, 128, 0),
+     ("float32",)),
+    ("recurrentgemma-2b S=2100 hd 256 (66)", (1, 2100, 10, 1, 256, 2048),
+     ("float32",)),
+    ("gemma3-27b S=2100 window 1024 (528)", (1, 2100, 32, 16, 128, 1024),
+     ("float32", "bfloat16")),
+)
+# (c): qwen2.5-3b at its published widths and depth, fp32, B x S tokens;
+# ``settle`` more steps are timed after the profiled one
+TRAIN_FULL = dict(arch="qwen2.5-3b", B=2, S=256, steps=3, settle=3)
+# the caching allocator's counters logged for each step of (c)
+ALLOC_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
 # the attention leaves and the embedding whose gradients (c) holds
 # against the plain attention path
 ATTN_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
@@ -2796,8 +2851,11 @@ def phase_train_kernels():
     """Phase 8 (a): K1's backward kernel against ``flash_attention_bwd_ref``
     (same q, k, v, o, lse, dO) and against autograd through the model's
     plain attention path, bit-equal on a repeat, timed beside its plain
-    version, the bound and SDPA's forward + backward. Also K1's lse
-    against the plain version's. Returns ``{tag: row}``."""
+    version and the bound; K1's forward + backward timed beside SDPA's
+    forward + backward (like with like). Also K1's lse against the plain
+    version's, and ``plan_bwd``'s launch plan of each row. Returns
+    ``{tag: row}``."""
+    from repro_torch.kernels._build import sm_count
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_ref)
@@ -2838,6 +2896,11 @@ def phase_train_kernels():
         shape = (f"q ({B},{Sq},{H},{hd}) k/v ({B},{Skv},{KVH},{hd}) {dtn} "
                  + ("causal" if causal else "non-causal")
                  + (f" window {window}" if window else ""))
+        bwd_plan = fa_ops.plan_bwd(B, H, KVH, Sq, Skv, hd, sm_count(0))
+        log(f"  flash_attention_bwd {tag} {dtn}: plan_bwd "
+            f"{'splits the GQA group' if bwd_plan.split else 'no split'}, "
+            f"{bwd_plan.blocks} dK/dV blocks of {bwd_plan.bk} keys, scratch "
+            f"{bwd_plan.scratch_bytes} bytes")
         log(f"  flash_attention_bwd {tag} {shape}: dq/dk/dv max_abs_err / "
             f"max|ref| {rel['ref']:.3g} against flash_attention_bwd_ref, "
             f"{rel['autograd']:.3g} against autograd through "
@@ -2876,8 +2939,9 @@ def phase_train_kernels():
 
         bwd = functools.partial(fa_ops.flash_attention_bwd, q, k, v, o, lse,
                                 do, **kw)
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_TF32X3_FLOPS
         b_ms, b_by = bound(nbytes(q, k, v, o, do, lse, *got),
-                           BWD_FLOPS * hd * H * pairs * B, peak_for(dt))
+                           BWD_FLOPS * hd * H * pairs * B, peak)
         rows[f"{tag} {dtn}"] = dict(
             shape=shape, max_abs_err=max(err(a, b) for a, b in
                                          zip(got, ref)),
@@ -2890,17 +2954,85 @@ def phase_train_kernels():
                 *t[:4], lse, t[4], **kw), reps=2, n=5),
             library_ms=graph_ms(library, reps=2, n=5),
             library="scaled_dot_product_attention forward + backward",
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, split=bwd_plan.split,
+            blocks=bwd_plan.blocks,
             peak=("bf16 tensor core" if dt == torch.bfloat16
-                  else "fp32 non-tensor"))
+                  else "tf32x3 tensor core"))
         r = rows[f"{tag} {dtn}"]
-        log(f"    {tag} {dtn}: backward {r['ms']:.5f} ms (K1 forward with "
-            f"lse + backward {r['fwd_bwd_ms']:.5f}), plain "
-            f"{r['plain_ms']:.5f}, SDPA forward + backward "
-            f"{r['library_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+        # the scalar kernel's time is logged, not put in the row: the
+        # kernels line holds this run's measurements only
+        before = BWD_BEFORE_MS.get(f"{tag} {dtn}")
+        log(f"    {tag} {dtn}: backward {r['ms']:.5f} ms"
+            + (f" (before {before:.5f}, {before / r['ms']:.2f}x)"
+               if before is not None else "")
+            + f", plain {r['plain_ms']:.5f}, bound {b_ms:.5f} ({b_by}); "
+            f"like with like: K1 forward with lse + backward "
+            f"{r['fwd_bwd_ms']:.5f} against SDPA forward + backward "
+            f"{r['library_ms']:.5f} ({r['fwd_bwd_ms'] / r['library_ms']:.2f}"
+            f"x)")
         del q, k, v, o, lse, do, got, ref, t, sq, sk, sv
         gc.collect()
         torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bwd_plans():
+    """Phase 8 (a), the launch plan: K1's backward at BWD_PLAN_ROWS under
+    each of ``plan_bwd``'s two plans for the dK/dV pass, the GQA group
+    split across blocks (as on a card of unbounded SMs) or walked by one
+    block (as on a card of none), timed in turns (split, unsplit,
+    unsplit, split; CUDA-graph replay, the mean of each plan's two); the
+    two plans' gradients agree within BWD_RTOL of max|g|. Logs which is
+    faster and which ``plan_bwd`` picks on this card; returns ``{tag:
+    row}``."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    n_sm = sm_count(0)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 9)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {}
+    for tag, (B, S, H, KVH, hd, window), dtns in BWD_PLAN_ROWS:
+        for dtn in dtns:
+            dt = dts[dtn]
+            q, do = (torch.randn((B, S, H, hd), generator=g,
+                                 device=DEV).to(dt) for _ in range(2))
+            k, v = (torch.randn((B, S, KVH, hd), generator=g,
+                                device=DEV).to(dt) for _ in range(2))
+            o, lse = fa_ops._forward(q, k, v, True, window, True)
+            plans = {"split": fa_ops.plan_bwd(B, H, KVH, S, S, hd, 2**31 - 1),
+                     "unsplit": fa_ops.plan_bwd(B, H, KVH, S, S, hd, 0)}
+            calls = {name: functools.partial(fa_ops._bwd_launch, q, k, v, o,
+                                             lse, do, True, window, plan)
+                     for name, plan in plans.items()}
+            a, b = calls["split"](), calls["unsplit"]()
+            rel = max(err(x, y) / float(y.abs().max().float())
+                      for x, y in zip(a, b))
+            if not (plans["split"].split and rel < BWD_RTOL[dtn]):
+                raise AssertionError(f"K1 backward plans at {tag} {dtn}: "
+                                     f"{plans}, rel {rel}")
+            times = {"split": [], "unsplit": []}
+            for name in ("split", "unsplit", "unsplit", "split"):
+                times[name].append(graph_ms(calls[name], reps=5, n=10))
+            ms = {name: statistics.mean(t) for name, t in times.items()}
+            chosen = ("split" if fa_ops.plan_bwd(B, H, KVH, S, S, hd,
+                                                 n_sm).split else "unsplit")
+            faster = min(ms, key=ms.get)
+            rows[f"{tag} {dtn}"] = row = dict(
+                blocks={n: p.blocks for n, p in plans.items()},
+                ms=ms, times=times, rel_diff=rel, chosen=chosen,
+                faster=faster)
+            log(f"  flash_attention_bwd plans, {tag} {dtn}: split "
+                f"{plans['split'].blocks} blocks {ms['split']:.5f} ms, "
+                f"unsplit {plans['unsplit'].blocks} blocks "
+                f"{ms['unsplit']:.5f} ms (unsplit / split "
+                f"{ms['unsplit'] / ms['split']:.3f}); plan_bwd on "
+                f"{n_sm} SMs picks {chosen}, the faster is {faster}; "
+                f"gradients differ by {rel:.3g} of max|g|")
+            del q, k, v, o, lse, do, a, b, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+    log("  " + json.dumps({"bwd_plans": rows}))
     return rows
 
 
@@ -3014,7 +3146,9 @@ def phase_train_full():
     just after): finite loss and grad norm, the last step's loss below
     the first's. Prints host
     wall, device ms (torch.profiler), idle share, device kernels a step,
-    tokens/s and peak memory."""
+    tokens/s and peak memory; then the walls of ``settle`` more steps
+    after the profiled one, and the caching allocator's retries, device
+    allocations and frees in each timed step."""
     from repro_torch import configs
     from repro_torch.device import generator_for
     from repro_torch.launch.steps import (batch_to, loss_and_grads,
@@ -3060,32 +3194,63 @@ def phase_train_full():
     step = make_train_step(cfg, opt)
     state = opt.init(params)
     reset_counts()
-    losses, gnorms, walls = [], [], []
-    for _ in range(c["steps"]):
+    losses, gnorms, walls, allocs = [], [], [], []
+
+    def timed_step(params, state):
         torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()
         t0 = time.perf_counter()
         params, state, m = step(params, state, batch)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-        walls.append((time.perf_counter() - t0) * 1e3)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        wall = (time.perf_counter() - t0) * 1e3
+        after = torch.cuda.memory_stats()
+        allocs.append({k: after.get(k, 0) - before.get(k, 0)
+                       for k in ALLOC_STATS})
+        return params, state, loss, gnorm, wall
+
+    for _ in range(c["steps"]):
+        params, state, loss, gnorm, wall = timed_step(params, state)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        walls.append(wall)
     launches = read_counts(("flash_attention", "flash_attention_bwd"))
     peak = torch.cuda.max_memory_allocated()
     # device time of one more step on the same batch, by torch.profiler
     # (the sum of its device kernels' times)
     holder = {"p": params, "s": state}
+    del params, state   # one param tree less: the update is not in place
 
     def one():
         holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
 
     kern = device_kernels(one, 1)
+    # more steps after the profiled one: whether the walls settle
+    settled = []
+    for _ in range(c["settle"]):
+        holder["p"], holder["s"], _l, _g, w = timed_step(holder["p"],
+                                                         holder["s"])
+        settled.append(w)
     dev_ms = sum(t for _, t, _c in kern)
     n_kern = sum(cnt for _, _t, cnt in kern)
-    fa_ms = sum(t for name, t, _c in kern if "fa_" in name)
+    # K1's kernels by name: the forward (fa_tc_kernel, fa_kernel) and the
+    # backward's D pass, dK/dV, group reduction and dQ kernels
+    fa_by_name = {}
+    for name, t, cnt in kern:
+        m = re.search(r"\bfa_(?:tc_kernel|kernel|bwd_\w+)", name)
+        if m:
+            ms, n = fa_by_name.get(m.group(0), (0.0, 0.0))
+            fa_by_name[m.group(0)] = (ms + t, n + cnt)
+    fa_ms = sum(t for t, _n in fa_by_name.values())
     wall = statistics.median(walls)
     out = {"losses": losses, "grad_norms": gnorms, "wall_ms": walls,
            "device_ms_profiler": dev_ms, "idle_share": 1 - dev_ms / wall,
            "device_kernels": n_kern, "attention_kernels_ms": fa_ms,
+           "attention_kernels_by_name": fa_by_name,
            "tokens_per_s": c["B"] * c["S"] / (wall / 1e3),
+           "settled_wall_ms": settled,
+           "tokens_per_s_settled": (c["B"] * c["S"]
+                                    / (statistics.median(settled) / 1e3)),
+           "allocator_by_step": allocs,
            "max_memory_allocated_bytes": peak, "launches": launches,
            "grad_check": worst,
            "top": [(k[:60], t) for k, t, _c in kern[:8]]}
@@ -3097,6 +3262,17 @@ def phase_train_full():
         f"step {n_kern:.0f} (K1 forward + backward kernels {fa_ms:.3f} "
         f"ms), {out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)}")
+    log(f"  step walls {[round(w, 1) for w in walls]} ms, then after the "
+        f"profiled step {[round(w, 1) for w in settled]} ms "
+        f"({out['tokens_per_s_settled']:.1f} tokens/s at their median); "
+        f"the caching allocator a step ({', '.join(ALLOC_STATS)}): "
+        + "; ".join(" ".join(str(a[k]) for k in ALLOC_STATS)
+                    for a in allocs))
+    log(f"  K1's share of the step's device time: {fa_ms:.3f} of "
+        f"{dev_ms:.3f} ms ({fa_ms / dev_ms:.4f}); by kernel (ms, launches "
+        "a step): " + "; ".join(f"{k} {t:.3f} ({n:.0f})" for k, (t, n) in
+                               sorted(fa_by_name.items(),
+                                      key=lambda x: -x[1][0])))
     # the loss falls over the 3 steps (the last below the first); a step
     # may rise: Adam's first updates move every weight by about lr, and
     # the second overshoots on the fresh model (on an H100: 12.458,
@@ -3107,7 +3283,7 @@ def phase_train_full():
                              f"{gnorms}")
     if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
         raise AssertionError(f"full-width step launched {launches}")
-    del params, state, holder
+    del holder
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
@@ -3178,6 +3354,7 @@ def phase_train():
     K1's forward and backward by path."""
     t0 = time.monotonic()
     rows = phase_train_kernels()
+    phase_bwd_plans()
     log(f"  phase 8 (a) took {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     smoke = phase_train_smoke()
@@ -3397,7 +3574,8 @@ def phase_build():
     """Build every kernel (one nvcc each, all at once), print each
     kernel's ptxas registers and spills, fail on any spill in ``NO_SPILL``,
     and print the HMMA count of each bf16 (tensor-core) instantiation of
-    K1, K4's chunked kernels and K6, failing if one has none."""
+    K1, of every dK/dV and dQ instantiation of K1's backward (bf16 and
+    f32), of K4's chunked kernels and of K6, failing if one has none."""
     from repro_torch.kernels import _build
 
     packages = sorted({v[0] for v in KERNELS.values()})
@@ -3424,6 +3602,16 @@ def phase_build():
     if len(hmma) != 5 or not all(hmma.values()):
         raise AssertionError(f"K1's bf16 kernels lack tensor-core mma: "
                              f"{hmma}")
+    dt_name = {"13__nv_bfloat16": "bf16", "f": "f32"}
+    bwd = {f"{m.group(1)} {dt_name[m.group(2)]} hd {m.group(3)}": n
+           for fn, n in sass_counts("flash_attention_bwd", "HMMA").items()
+           for m in [re.search(r"fa_bwd_(dkdv|dq)_kernelI(13__nv_bfloat16|f)"
+                               r"Li(\d+)E", fn)] if m}
+    log(f"  HMMA instructions in K1's backward (dK/dV and dQ, bf16 and "
+        f"f32 3xTF32): {json.dumps(bwd)}")
+    if len(bwd) != 20 or not all(bwd.values()):
+        raise AssertionError(f"K1's backward kernels lack tensor-core mma: "
+                             f"{bwd}")
     wkv = {fn: n for fn, n in sass_counts("rwkv6_scan", "HMMA").items()
            if "wkv_chunk_state" in fn or "wkv_chunk_out" in fn}
     log(f"  HMMA instructions in K4's chunked kernels: "
@@ -3814,7 +4002,7 @@ def main() -> int:
                                              "before_ms", "cold_ms",
                                              "per_app_us", "n_split",
                                              "unmasked_ms", "fwd_bwd_ms",
-                                             "rel_err")
+                                             "rel_err", "split", "blocks")
                            if k in x}
                      for tag, x in rows[name].items()}})
     log(f"  total {time.monotonic() - t_start:.1f} s")

@@ -7,18 +7,24 @@ version in ``ref.py``. There is no fallback from one to the other.
 
 ``FlashAttentionFn`` is the differentiable call: its forward launches K1
 and keeps each row's log-sum-exp, its backward launches the backward
-kernel. ``LAUNCHES`` counts K1's forward launches, ``BWD_LAUNCHES`` the
-backward's.
+kernels. ``plan_bwd`` decides, from the shapes and the card's SM count
+alone, whether the dK/dV pass splits each GQA group across blocks (fp32
+partials in a scratch this wrapper allocates, summed in a fixed order),
+so two runs on one card are bit-equal. ``LAUNCHES`` counts K1's forward
+launches, ``BWD_LAUNCHES`` the backward's (one a call, whatever the
+number of kernels).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -50,8 +56,47 @@ def _lib_bwd():
     fn = lib.faillite_flash_attention_bwd
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = ([_P] * 10 + [_I] * 7 + [_P, _I, _I, _P])
+        fn.argtypes = ([_P] * 10 + [_I] * 7 + [_P, _I, _I, _P, _P])
     return fn
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch plan: ``bk`` keys a dK/dV block; ``split``:
+    one dK/dV block per (query head, key tile), writing fp32 partials
+    into ``scratch_bytes`` of scratch that a second kernel sums over each
+    GQA group, else one block per (KV head, key tile) that walks its
+    group's heads; ``blocks`` the dK/dV grid's size."""
+    bk: int
+    split: bool
+    blocks: int
+    scratch_bytes: int
+
+
+def plan_bwd(B, H, KVH, Sq, Skv, hd, n_sm):
+    """The backward's launch plan for these shapes on a card of ``n_sm``
+    SMs. Splits the GQA group exactly when the group has more than one
+    head and the unsplit grid, B x KVH x ceil(Skv / bk) blocks, is under
+    1.5 blocks an SM; the scratch is the partial dK and dV, (B, Skv, H,
+    hd) fp32 each. The dK/dV grid walks key tiles, so Sq does not enter.
+    Depends on these numbers only, never on data.
+
+    The kernel runs one block an SM. Below 1.5 waves the unsplit grid
+    leaves SMs idle, and its longest blocks (the first key tiles under a
+    causal mask, each walking G heads) set the time; the split's G
+    times more blocks, longest first, even that out for the price of the
+    partials' round trip and the reduction. On an H100 (132 SMs; both
+    plans timed by chip_smoke.py's phase 8 (a)) the split is faster up
+    to 192 unsplit blocks in bf16 and 224 in f32, and 2-8% slower from
+    224 in bf16 and 256 in f32."""
+    # the kernel's key tile (``Cfg::BK`` in csrc/flash_attention_bwd.cu):
+    # four row groups of 16 keys, fewer where a head of 256 takes two
+    # warps' columns
+    bk = 16 * 4 // (hd // min(hd, 128))
+    tiles = -(-Skv // bk)
+    split = H > KVH and 2 * B * KVH * tiles < 3 * n_sm
+    if not split:
+        return BwdPlan(bk, False, B * KVH * tiles, 0)
+    return BwdPlan(bk, True, B * H * tiles, 2 * B * Skv * H * hd * 4)
 
 
 def _check(q, k, v, window, *, o=None, do=None, lse=None):
@@ -137,7 +182,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     its output ``o``, its row log-sum-exp ``lse`` (B,H,Sq) fp32 and the
     output's gradient ``do``: the backward kernel on the card, the plain
     version on the CPU. dk and dv sum over each KV head's query heads."""
-    global BWD_LAUNCHES
     _check(q, k, v, window, o=o, do=do, lse=lse)
     if q.device.type == "cpu":
         t = (q, k, v, o, do)
@@ -148,13 +192,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     _check_cuda(q)
     B, Sq, H, hd = q.shape
     _, Skv, KVH, _ = k.shape
-    q, k, v, o, do = (x if x.stride(-1) == 1 else x.contiguous()
+    return _bwd_launch(q, k, v, o, lse, do, causal, window,
+                       plan_bwd(B, H, KVH, Sq, Skv, hd,
+                                sm_count(q.device.index)))
+
+
+def _bwd_launch(q, k, v, o, lse, do, causal, window, plan):
+    """The backward's kernels on checked CUDA tensors under ``plan``."""
+    global BWD_LAUNCHES
+    B, Sq, H, hd = q.shape
+    _, Skv, KVH, _ = k.shape
+    # the kernels read rows with 16-byte copies
+    q, k, v, o, do = (x if x.stride(-1) == 1 and _build.rows_aligned(x)
+                      else x.clone(memory_format=torch.contiguous_format)
                       for x in (q, k, v, o, do))
     lse = lse.contiguous()
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=q.device) if plan.split else None)
     strides = (ctypes.c_int64 * 24)(*(st for x in (q, k, v, o, do, dq, dk, dv)
                                       for st in x.stride()[:3]))
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -163,6 +221,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      DTYPES[q.dtype], B, H, KVH, Sq, Skv, hd,
                      ctypes.cast(strides, _P), int(bool(causal)), int(window),
+                     None if scratch is None else scratch.data_ptr(),
                      stream)
     _build.check(err, BWD_NAME)
     with _count_lock:

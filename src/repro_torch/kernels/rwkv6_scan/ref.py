@@ -44,7 +44,7 @@ def tf32_round(x):
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _matmul(a, b, tf32x3):
+def tf32x3_matmul(a, b, tf32x3):
     """a @ b in fp32, or as the kernel's 3xTF32 product: each operand
     split into a TF32 high part and a TF32 remainder, hi.hi + hi.lo +
     lo.hi (lo.lo dropped)."""
@@ -89,7 +89,8 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
 
     # (a) each chunk's state increment and decay
     k_dec = kc * torch.exp(cum_last - cum)
-    dstate = _matmul(k_dec.transpose(-1, -2), vc, tf32x3)   # (.., hs, hs)
+    dstate = tf32x3_matmul(k_dec.transpose(-1, -2), vc,
+                           tf32x3)                          # (.., hs, hs)
     decay = torch.exp(cum_last[..., 0, :])                  # (.., hs)
 
     # (b) the walk over chunks
@@ -119,9 +120,9 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
             ref = cum_prev[..., b0:b0 + 1, :]
             r_loc = rt * torch.exp(cum_prev[..., rows, :] - ref)
             k_loc = kc[..., :b0, :] * torch.exp(ref - cum[..., :b0, :])
-            a[..., rows, :b0] = _matmul(r_loc, k_loc.transpose(-1, -2),
-                                        tf32x3)
+            a[..., rows, :b0] = tf32x3_matmul(
+                r_loc, k_loc.transpose(-1, -2), tf32x3)
     r_dec = rc * torch.exp(cum_prev)
-    y = _matmul(r_dec, s_in, tf32x3) + _matmul(a, vc, tf32x3)
+    y = tf32x3_matmul(r_dec, s_in, tf32x3) + tf32x3_matmul(a, vc, tf32x3)
     y = y.reshape(B, nh, nc * C, hs)[:, :, :S].movedim(1, 2)
     return y.contiguous(), s

@@ -6,6 +6,13 @@ a window binds), on the same numpy inputs; ``FlashAttentionFn``'s wiring
 driven through its plain routes; K1's row log-sum-exp; the shape checks
 of the backward entry. Tolerance: f32 1e-5 of the largest |gradient|
 (the three compute one function in f32 in different orders).
+
+Also the CUDA route's algorithm where it runs here: ``plan_bwd``'s
+launch plan (when the dK/dV pass splits each GQA group across blocks)
+and the plain backward with ``tf32x3=True``, every product rounded as
+the kernel's fp32 route rounds it (3xTF32) and dK/dV summed over the
+group in the split's order, against ``jax.vjp`` within the card's f32
+tolerance, 1e-4 of the largest |gradient|.
 """
 
 import math
@@ -26,6 +33,7 @@ from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 
 RTOL = 1e-5
+CARD_RTOL = 1e-4     # the card's f32 tolerance of K1's backward
 
 # (B, Sq, Skv, H, KVH, hd, causal, window): causal, a window that binds
 # and one that does not, non-causal with Sq != Skv (whisper's cross
@@ -50,11 +58,11 @@ def _inputs(B, Sq, Skv, H, KVH, hd, seed):
     return q, k, v, do
 
 
-def _close(got, want):
+def _close(got, want, rtol=RTOL):
     for a, b in zip(got, want):
         a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
         assert a.shape == b.shape
-        assert np.abs(a - b).max() <= RTOL * max(1.0, np.abs(b).max())
+        assert np.abs(a - b).max() <= rtol * max(1.0, np.abs(b).max())
 
 
 def _jax_grads(q, k, v, do, causal, window):
@@ -70,14 +78,14 @@ def _jax_grads(q, k, v, do, causal, window):
     return vjp(jnp.asarray(do))
 
 
-def _bwd_ref(q, k, v, do, causal, window):
+def _bwd_ref(q, k, v, do, causal, window, tf32x3=False):
     """The plain backward in the model's layout, on the plain forward's
     o and lse."""
     t = [torch.from_numpy(x).transpose(1, 2) for x in (q, k, v, do)]
     o, lse = flash_attention_ref(*t[:3], causal=causal, window=window,
                                  return_lse=True)
     return [g.transpose(1, 2) for g in flash_attention_bwd_ref(
-        *t[:3], o, lse, t[3], causal=causal, window=window)]
+        *t[:3], o, lse, t[3], causal=causal, window=window, tf32x3=tf32x3)]
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -162,3 +170,76 @@ def test_backward_entry_rejects_bad_shapes():
         fa_ops.flash_attention_bwd(q, k, v, o, lse.double(), do, **kw)
     with pytest.raises(TypeError, match="q's dtype"):
         fa_ops.flash_attention_bwd(q, k, v, o, lse, do.double(), **kw)
+
+
+# qwen2.5-3b's heads (16 query heads on 2 KV heads, head_dim 128) at a
+# ragged S
+QWEN_HEADS = (1, 100, 100, 16, 2, 128, True, 0)
+
+
+@pytest.mark.parametrize("case", CASES + [QWEN_HEADS])
+def test_bwd_ref_tf32x3_matches_jax_vjp(case):
+    """The fp32 route's arithmetic, every product in 3xTF32 and dK/dV
+    summed head by head in the split's order, stays within the card's
+    f32 tolerance of JAX's gradients; and it is not the fp32 product (the
+    option rounds)."""
+    B, Sq, Skv, H, KVH, hd, causal, window = case
+    q, k, v, do = _inputs(B, Sq, Skv, H, KVH, hd, seed=sum(case[:6]) + 1)
+    got = _bwd_ref(q, k, v, do, causal, window, tf32x3=True)
+    _close([g.numpy() for g in got], _jax_grads(q, k, v, do, causal, window),
+           rtol=CARD_RTOL)
+    plain = _bwd_ref(q, k, v, do, causal, window)
+    assert any(not torch.equal(a, b) for a, b in zip(got, plain))
+
+
+# (B, H, KVH, Sq, Skv, hd): the phase 8 (a) rows and BWD_SWEEP's sides,
+# each with its key tile and its dK/dV grid unsplit and split
+PLAN_SHAPES = {
+    (2, 16, 2, 256, 256, 128): (64, 16, 128),        # qwen2.5-3b B=2 S=256
+    (5, 16, 2, 1024, 1024, 128): (64, 160, 1280),    # past 132 SMs
+    (1, 14, 2, 256, 256, 256): (32, 16, 112),        # G = 7, hd 256
+    (1, 56, 8, 256, 256, 128): (64, 32, 224),        # arctic-480b
+    (1, 32, 16, 2100, 2100, 128): (64, 528, 1056),   # gemma3-27b
+    (1, 10, 1, 2100, 2100, 256): (32, 66, 660),      # recurrentgemma-2b
+    (1, 16, 16, 64, 1500, 64): (64, 384, None),      # whisper cross, G = 1
+    (2, 8, 2, 24, 24, 16): (64, 4, 16),              # a smoke rung
+}
+
+
+@pytest.mark.parametrize("shape", list(PLAN_SHAPES))
+@pytest.mark.parametrize("n_sm", [10, 11, 106, 107, 132, 352, 353])
+def test_plan_bwd_splits_exactly_when_the_group_grid_cannot_fill_the_card(
+        shape, n_sm):
+    """Split iff the group has more than one head and the unsplit grid
+    has fewer than 1.5 blocks an SM (16 blocks: 11 SMs or more; 160: 107;
+    528: 353); the scratch is the fp32 partial dK and dV, 2 B Skv H hd 4
+    bytes; the same shapes give the same plan."""
+    B, H, KVH, Sq, Skv, hd = shape
+    bk, unsplit, split = PLAN_SHAPES[shape]
+    plan = fa_ops.plan_bwd(B, H, KVH, Sq, Skv, hd, n_sm)
+    if split is not None and unsplit < 1.5 * n_sm:
+        assert plan == fa_ops.BwdPlan(bk, True, split,
+                                      2 * B * Skv * H * hd * 4)
+    else:
+        assert plan == fa_ops.BwdPlan(bk, False, unsplit, 0)
+    assert fa_ops.plan_bwd(B, H, KVH, Sq, Skv, hd, n_sm) == plan
+
+
+@pytest.mark.parametrize("hd", fa_ops.HEAD_DIMS)
+def test_plan_bwd_never_splits_a_group_of_one(hd):
+    for n_sm in (1, 132, 10**6):
+        plan = fa_ops.plan_bwd(1, 4, 4, 8, 8, hd, n_sm)
+        assert not plan.split and plan.scratch_bytes == 0
+
+
+def test_plan_bwd_at_the_training_shapes():
+    """qwen2.5-3b B=2 S=256 on 132 SMs: 16 blocks become 128, with 8.4 MB
+    of scratch a layer; recurrentgemma-2b's S=2100: 43 MB; gemma3-27b's
+    528 blocks fill four waves and stay unsplit."""
+    plan = fa_ops.plan_bwd(2, 16, 2, 256, 256, 128, 132)
+    assert (plan.split, plan.blocks, plan.scratch_bytes) == \
+        (True, 128, 8_388_608)
+    assert fa_ops.plan_bwd(2, 16, 2, 256, 256, 128, 10).blocks == 16
+    plan = fa_ops.plan_bwd(1, 10, 1, 2100, 2100, 256, 132)
+    assert (plan.split, plan.scratch_bytes) == (True, 43_008_000)
+    assert not fa_ops.plan_bwd(1, 32, 16, 2100, 2100, 128, 132).split

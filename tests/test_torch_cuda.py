@@ -912,8 +912,17 @@ BWD_SWEEP = [
     (1, 77, 77, 14, 2, 64, True, 0),         # G = 7
     (1, 130, 130, 10, 1, 256, True, 64),     # hd 256, window binds
     (1, 33, 150, 4, 4, 32, False, 0),        # non-causal, Sq != Skv
+    # both sides of plan_bwd's split of the GQA group on a 132-SM card
+    (2, 256, 256, 16, 2, 128, True, 0),      # qwen2.5-3b B=2 S=256: split
+    (5, 1024, 1024, 16, 2, 128, True, 0),    # 160 dK/dV blocks: split
+    (1, 256, 256, 14, 2, 256, True, 0),      # G = 7, hd 256: split
+    (8, 1024, 1024, 16, 2, 128, True, 0),    # 256 dK/dV blocks: no split
 ]
 BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the four rows above and whether plan_bwd splits them: 16, 160, 16 and
+# 256 unsplit dK/dV blocks, so on any card of 107 to 170 SMs
+BWD_SPLIT_SIDES = {BWD_SWEEP[-4]: True, BWD_SWEEP[-3]: True,
+                   BWD_SWEEP[-2]: True, BWD_SWEEP[-1]: False}
 
 
 @pytest.mark.cuda
@@ -946,6 +955,20 @@ def test_flash_attention_bwd_matches_plain_on_cuda(cuda, dtype):
                 BWD_RTOL[dtype] * float(b.abs().max().float()), \
                 (B, Sq, Skv, H, KVH, hd, causal, window)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_sweep_covers_both_sides_of_the_split(cuda):
+    """BWD_SWEEP's last four rows fall where they are meant to on this
+    card: plan_bwd splits the GQA group at qwen2.5-3b's S=256, at 160
+    unsplit dK/dV blocks and at G = 7 hd 256, and not at 256 unsplit
+    blocks."""
+    from repro_torch.kernels._build import sm_count
+    n_sm = sm_count(cuda.index or 0)
+    assert 107 <= n_sm <= 170
+    for (B, Sq, Skv, H, KVH, hd, _, _), split in BWD_SPLIT_SIDES.items():
+        plan = fa_ops.plan_bwd(B, H, KVH, Sq, Skv, hd, n_sm)
+        assert plan.split == split, (B, Sq, H, KVH, hd, plan)
 
 
 @pytest.mark.cuda
