@@ -7,10 +7,11 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
 
 0. device: the card's name and power limit, TF32 off;
-1. build: the six CUDA kernels and K1's backward from
-   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` each, all at once;
-   no ptxas spill in K1 (forward and backward), K2, K3, K4's chunked
-   kernels, K5's round kernel or K6's tensor-core kernels, and HMMA
+1. build: the six CUDA kernels and the backward kernels of K1, K3's
+   gated route and K4 from ``src/repro_torch/kernels/*/csrc``, one
+   ``nvcc`` each, all at once; no ptxas spill in K1, K3 or K4's backward
+   kernels, K1 (forward), K2, K3, K4's chunked kernels, K5's round kernel
+   or K6's tensor-core kernels, and HMMA
    instructions in every bf16 instantiation of K1, every dK/dV and dQ
    instantiation of K1's backward (bf16, and f32 as 3xTF32), K4's
    chunked kernels and K6;
@@ -180,9 +181,11 @@ and prints no result):
    a torch-backend planner planned, the standalone argmax never; (f)
    benchmarks/ilp_vs_heuristic.py's instances: the ILP's objective at
    least the greedy planner's on the card;
-8. training on the card, K1 under autograd (``FlashAttentionFn``: K1
-   keeps each row's log-sum-exp, its backward is
-   ``csrc/flash_attention_bwd.cu``): (a) K1's backward against
+8. training on the card, K1, K3's gated route and K4 under autograd
+   (``FlashAttentionFn``: K1 keeps each row's log-sum-exp, its backward
+   is ``csrc/flash_attention_bwd.cu``; ``RGLRUGatedScanFn`` and
+   ``WKV6Fn``, whose backwards are ``csrc/rglru_scan_bwd.cu`` and
+   ``csrc/rwkv6_scan_bwd.cu``): (a) K1's backward against
    ``flash_attention_bwd_ref`` on the same (q, k, v, o, lse, dO) and
    against autograd through ``flash_attention_plain`` (1e-4 of the
    largest |gradient| in f32, 2e-2 in bf16), K1's lse against the plain
@@ -196,26 +199,33 @@ and prints no result):
    rate), and K1's forward + backward beside SDPA's forward + backward;
    then both of ``plan_bwd``'s plans timed in turns at shapes on both
    sides of its split rule, their gradients within the same tolerance;
-   (b) two
-   ``make_train_step`` steps on SMOKE params of the eight archs without
-   recurrent layers, card against CPU (losses within 1e-5 relative, the
-   gradients within 1e-4 x max(1, max|g|), params moved, K1's forward and
-   backward launched by the card steps); recurrentgemma-2b and rwkv6-3b
-   raise K3's / K4's named RuntimeError; (c) qwen2.5-3b at its published
-   config in fp32, B=2 x S=256: the attention and embedding gradients
-   through the kernels against the plain attention path on the card,
-   then 3 steps, the loss finite and falling over them (the last below
-   the first); the step's host wall, device ms (torch.profiler), idle
-   share, device kernels, K1's share of the device time by kernel name,
-   tokens/s and peak memory, the walls of 3 more steps and the caching
-   allocator's retries, allocations and frees a step; (d)
-   ``train(scale="20m")`` crashed at step
-   6 and resumed: its losses bit-equal to one uninterrupted run's, the last
-   checkpoint restored on the CPU bit-equal to the card's.
+   and K3's gated backward (recurrentgemma-2b's width, B=1 and 2 at
+   S=256, S=2100) and K4's (rwkv6-3b's 40 heads of 64, B=1 and 2 at
+   S=256, S=33, lw to -20) in f32 and bf16 against their plain backwards
+   and against autograd through their plain forwards on the card (the
+   same tolerances; K4's dlw 1e-3), two runs bit-equal, each timed
+   beside its plain version and the bound (fp32 operations or bytes);
+   (b) two ``make_train_step`` steps on SMOKE params of all ten archs,
+   card against CPU (losses within 1e-5 relative, the gradients within
+   1e-4 x max(1, max|g|), params moved, the forward and backward kernels
+   of the arch's layers launched by the card steps); (c) qwen2.5-3b,
+   rwkv6-3b and recurrentgemma-2b at their published configs in fp32,
+   B=2 x S=256, one after the other: the attention, recurrent-block and
+   embedding gradients through the kernels against the plain paths on
+   the card, then 3 steps, the loss finite and falling over them (the
+   last below the first); the step's host wall, device ms
+   (torch.profiler), idle share, device kernels, the port's kernels'
+   share of the device time by kernel name, tokens/s and peak memory,
+   the walls of 3 more steps and the caching allocator's retries,
+   allocations and frees a step; (d) ``train(scale="20m")`` of
+   qwen2.5-3b and of rwkv6-3b crashed at step 6 and resumed: its losses
+   bit-equal to one uninterrupted run's, the last checkpoint restored on
+   the CPU bit-equal to the card's.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel (K1's backward as ``flash_attention_bwd``) with its
-launches, error, times and bound.
+lists every kernel (the backward kernels as ``flash_attention_bwd``,
+``rglru_gated_bwd`` and ``wkv6_bwd``) with its launches, error, times
+and bound.
 """
 
 from __future__ import annotations
@@ -372,6 +382,16 @@ KERNELS = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:29",
         "qwen2.5-3b full S=256 float32"),
+    "rglru_gated_bwd": (
+        "rglru_scan_bwd",
+        "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan_bwd.cu",
+        "src/repro/kernels/rglru_scan/rglru_scan.py:25",
+        "recurrentgemma-2b full B=2 S=256 float32"),
+    "wkv6_bwd": (
+        "rwkv6_scan_bwd",
+        "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan_bwd.cu",
+        "src/repro/kernels/rwkv6_scan/rwkv6_scan.py:26",
+        "rwkv6-3b full B=2 S=256 float32"),
     "decode_attention": (
         "decode_attention",
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
@@ -426,10 +446,12 @@ STANDALONE = ("rglru_scan", "planner_argmax", "int8_matmul")
 # routes only a planner call with a latency_fn takes (phase 7 (a)); the
 # controller, the simulator and the testbed plan no such request
 LATENCY_ONLY = ("planner_round_masked",)
-# routes only a train step takes (phase 8): K1's backward. Its "replaces"
-# is K1's TPU kernel: the JAX package has no backward kernel and takes
-# that kernel's gradient from XLA's autodiff of flash_attention_jnp
-TRAINING_ONLY = ("flash_attention_bwd",)
+# routes only a train step takes (phase 8): the backward kernels of K1,
+# K3's gated route and K4. Each one's "replaces" is its forward's TPU
+# kernel: the JAX package has no backward kernel and takes those
+# gradients from XLA's autodiff of flash_attention_jnp, rglru_scan and
+# wkv_chunked / wkv_scan
+TRAINING_ONLY = ("flash_attention_bwd", "rglru_gated_bwd", "wkv6_bwd")
 INT8_PATH = "standalone (no JAX caller): int8 SwiGLU at qwen3-32b's MLP"
 SCAN_PATH = ("standalone (off the main path since the gated route): "
              "recurrentgemma-2b's RG-LRU unfused, the _gates tail then the "
@@ -458,6 +480,10 @@ NO_LIBRARY = {
     "rglru_scan": "none: no single PyTorch call computes this recurrence",
     "rwkv6_chunked": "none: no single PyTorch call computes this recurrence",
     "rwkv6_scan": "none: no single PyTorch call computes this recurrence",
+    "rglru_gated_bwd": "none: no single PyTorch call computes this "
+                       "recurrence's gradient",
+    "wkv6_bwd": "none: no single PyTorch call computes this recurrence's "
+                "gradient",
     "planner_round": "none: no single PyTorch call plans a round",
     "planner_round_masked": "none: no single PyTorch call plans a round",
     "planner_argmax": "none (no single PyTorch call)",
@@ -504,7 +530,9 @@ def reset_counts():
 
 def read_counts(routes=None):
     """Launches since the last reset, by route (``KERNELS``): K1's forward
-    and backward, K3's gated and (a, b) calls, K4's chunked prefill and recurrent decode calls, K5's
+    and backward, K3's gated and (a, b) calls and the gated route's
+    backward, K4's chunked prefill and recurrent decode calls and its
+    backward, K5's
     round kernel without and with a latency mask and its standalone
     argmax apart."""
     m = all_ops()
@@ -512,6 +540,7 @@ def read_counts(routes=None):
     out = {name: m[name].LAUNCHES for name in
            ("flash_attention", "decode_attention", "int8_matmul")}
     out.update(flash_attention_bwd=m["flash_attention"].BWD_LAUNCHES,
+               rglru_gated_bwd=rg.BWD_LAUNCHES, wkv6_bwd=wkv.BWD_LAUNCHES,
                rglru_gated=rg.GATED_LAUNCHES,
                rglru_scan=rg.LAUNCHES - rg.GATED_LAUNCHES,
                rwkv6_chunked=wkv.CHUNKED_LAUNCHES,
@@ -2718,7 +2747,8 @@ def phase_plane(failover_inputs, greedy_records):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: training on the card (K1 forward + its backward kernel)
+# Phase 8: training on the card (K1, K3's gated route and K4, forward and
+# backward kernels)
 # ---------------------------------------------------------------------------
 
 # (a): K1's backward against its plain version; each arch's heads, KV
@@ -2755,10 +2785,34 @@ BWD_RTOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # operations of the backward per (query, key) pair a head and head_dim
 # element: S recomputed, dP, dV, dK, dQ, two each (the forward's 4 x 2.5)
 BWD_FLOPS = 10
+# (a), the recurrent backward kernels at their archs' published widths:
+# K3's gated route (B, S, W) and K4 (B, NH, S, hs), f32 and bf16 each
+REC_BWD_ROWS = {
+    "rglru_gated_bwd": (("recurrentgemma-2b full B=1 S=256", (1, 256, 2560)),
+                        ("recurrentgemma-2b full B=2 S=256", (2, 256, 2560)),
+                        ("recurrentgemma-2b full B=1 S=2100",
+                         (1, 2100, 2560))),
+    "wkv6_bwd": (("rwkv6-3b full B=1 S=256", (1, 40, 256, 64)),
+                 ("rwkv6-3b full B=2 S=256", (2, 40, 256, 64)),
+                 ("rwkv6-3b full B=1 S=33", (1, 40, 33, 64))),
+}
+# K4's lw spread down to -20 in (a)'s rows: rwkv6-3b's decays have no clamp
+REC_BWD_LW_MIN = -20.0
+# dlw's tolerance, relative to its largest |reference|: its intra-chunk
+# pairs cancel (tests/test_torch_recbwd.py measures the plain backward
+# against jax.vjp)
+DLW_RTOL = 1e-3
+# operations a (row, step, channel) of K3's gated backward: the gates
+# recomputed (two sigmoids, two exps, a sqrt: ~15), the adjoint and the
+# chain through the gates (~20)
+RGLRU_BWD_FLOPS = 35
+# operations a (row, head, step) of K4's backward, in units of hs^2: the
+# recurrence's reverse, with the state's adjoint dS_{t-1} = w dS_t +
+# r^T dy (3), dr = S_{t-1} dy (2), dk = dS_t v (2), dv = dS_t^T k (2),
+# dlw = w (S_{t-1} . dS_t) (2) and the state recomputed (3)
+WKV_BWD_FLOPS = 14
 # (b): a smoke train step's batch, as tests/test_archs.py's
 TRAIN_SMOKE_B, TRAIN_SMOKE_S = 2, 24
-# the kinds whose kernels have no backward yet (K3, K4)
-RECURRENT_KINDS = {"rglru": "K3 backward", "rwkv": "K4 backward"}
 # (a), the launch plan: K1's backward under both of plan_bwd's plans for
 # the dK/dV pass, at shapes on both sides of its split rule (each tag
 # ends in the unsplit grid's blocks), causal: (tag, (B, S, H, KVH, hd,
@@ -2789,17 +2843,28 @@ BWD_PLAN_ROWS = (
     ("gemma3-27b S=2100 window 1024 (528)", (1, 2100, 32, 16, 128, 1024),
      ("float32", "bfloat16")),
 )
-# (c): qwen2.5-3b at its published widths and depth, fp32, B x S tokens;
+# (c): each arch at its published widths and depth, fp32, B x S tokens;
 # ``settle`` more steps are timed after the profiled one
-TRAIN_FULL = dict(arch="qwen2.5-3b", B=2, S=256, steps=3, settle=3)
+TRAIN_FULL = dict(B=2, S=256, steps=3, settle=3)
+TRAIN_FULL_ARCHS = ("qwen2.5-3b", "rwkv6-3b", "recurrentgemma-2b")
+# (c)'s losses through the kernels against the plain paths', relative:
+# three fp32 steps of a full-depth model through other operation orders
+# (rwkv6-3b on an H100: 9.1e-6 at the third step)
+LOSS_RTOL = 1e-4
 # the caching allocator's counters logged for each step of (c)
 ALLOC_STATS = ("num_alloc_retries", "num_device_alloc", "num_device_free")
-# the attention leaves and the embedding whose gradients (c) holds
-# against the plain attention path
+# the attention leaves, every leaf of the RG-LRU ("rec") and RWKV
+# time-mix ("tm") blocks, and the embedding: the gradients (c) holds
+# against the plain path
 ATTN_LEAVES = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
-# (d): the driver's crash and resume
-TRAIN_RESUME = dict(arch="qwen2.5-3b", scale="20m", steps=12, batch=4,
-                    seq=128, ckpt_every=4, seed=SEED)
+RECURRENT_BLOCKS = ("rec", "tm")
+# the device kernels of K1, K3 and K4, forward and backward, by name
+PORT_KERNEL_RE = re.compile(r"\b(?:fa_(?:tc_kernel|kernel|bwd_\w+)"
+                            r"|rglru_\w+_kernel|wkv_\w+_kernel)")
+# (d): ``train``'s crash and resume, for each arch
+TRAIN_RESUME = dict(scale="20m", steps=12, batch=4, seq=128, ckpt_every=4,
+                    seed=SEED)
+TRAIN_RESUME_ARCHS = ("qwen2.5-3b", "rwkv6-3b")
 TRAIN_CRASH_AT = 6
 
 
@@ -2814,15 +2879,14 @@ def bwd_shapes(arch, dims):
             window)
 
 
-def train_smoke_archs():
-    """(archs whose layers have no recurrence, the recurrent ones)."""
+def attention_smoke_archs():
+    """The archs whose SMOKE layers include attention (K1)."""
     from repro_torch import configs
+    from repro_torch.models.model import ATTN_KINDS
 
-    plain, rec = [], []
-    for arch in configs.ARCHS:
-        kinds = set(configs.get_smoke(arch).layer_kinds())
-        (rec if kinds & set(RECURRENT_KINDS) else plain).append(arch)
-    return plain, rec
+    c = configs.get_smoke
+    return [arch for arch in configs.ARCHS if c(arch).is_encoder_decoder
+            or set(c(arch).layer_kinds()) & set(ATTN_KINDS)]
 
 
 def smoke_attention_shapes(arch):
@@ -2840,7 +2904,7 @@ def smoke_attention_shapes(arch):
     S += c.num_patch_tokens
     kinds = set(c.layer_kinds())
     out = []
-    if kinds - {"local"}:
+    if kinds & {"global", "moe", "moe_dense"}:
         out.append((B, S, S, *heads, True, 0))
     if "local" in kinds:
         out.append((B, S, S, *heads, True, c.window_size))
@@ -2866,8 +2930,8 @@ def phase_train_kernels():
     rows = {}
     plan = [(tag, bwd_shapes(arch, dims), dtn)
             for tag, arch, dims, dtns in TRAIN_BWD_ROWS for dtn in dtns]
-    plain_archs, _ = train_smoke_archs()
-    plan += [(f"{arch} smoke #{i}", shape, "float32") for arch in plain_archs
+    plan += [(f"{arch} smoke #{i}", shape, "float32")
+             for arch in attention_smoke_archs()
              for i, shape in enumerate(smoke_attention_shapes(arch))]
     for tag, (B, Sq, Skv, H, KVH, hd, causal, window), dtn in plan:
         dt = dts[dtn]
@@ -3036,6 +3100,106 @@ def phase_bwd_plans():
     return rows
 
 
+def rec_bwd_case(name, dims, dt, g):
+    """A phase 8 (a) row's inputs on the card, drawn from ``g``: K3's
+    (ga, gx, xb, log_lambda as the model draws it, h0) or K4's (r, k, v,
+    lw spread over [REC_BWD_LW_MIN, -0.05], u, s0), then the gradients of
+    the forward's outputs."""
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=DEV) * scale
+
+    if name == "rglru_gated_bwd":
+        B, S, W = dims
+        a_init = 0.9 + 0.099 * torch.rand(W, generator=g, device=DEV)
+        lam = torch.log(torch.expm1(-torch.log(a_init) / 8.0))
+        ins = [randn(B, S, W).to(dt) for _ in range(3)] + [lam, randn(B, W)]
+        return ins, [randn(B, S, W), randn(B, W)]
+    B, NH, S, hs = dims
+    lo, hi = math.log(0.05), math.log(-REC_BWD_LW_MIN)
+    lw = -torch.exp(lo + (hi - lo) * torch.rand((B, S, NH, hs), generator=g,
+                                                device=DEV))
+    ins = ([randn(B, S, NH, hs).to(dt) for _ in range(3)]
+           + [lw, randn(NH, hs, scale=0.3), randn(B, NH, hs, hs, scale=0.3)])
+    return ins, [randn(B, S, NH, hs), randn(B, NH, hs, hs)]
+
+
+def phase_train_rec_kernels():
+    """Phase 8 (a), the recurrent backward kernels: K3's gated backward
+    against ``rglru_gated_scan_bwd_ref`` and K4's against
+    ``wkv6_chunked_bwd_ref`` on the same inputs (the forward's h, or the
+    states the forward kept), and against autograd through the plain
+    forward (``rglru_gated_scan_ref``, ``wkv6_ref``) on the card; two runs
+    bit-equal; f32 within 1e-4 of each gradient's largest |reference|
+    (dlw DLW_RTOL), bf16 2e-2. Timed by CUDA-graph replay beside the plain
+    backward and the bound. Returns ``{kernel: {tag: row}}``."""
+    from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_bwd_ref,
+                                                    rglru_gated_scan_ref)
+    from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked_bwd_ref,
+                                                    wkv6_ref)
+
+    m = ops_modules()
+    rg, wkv = m["rglru_scan"], m["rwkv6_scan"]
+    g = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {name: {} for name in REC_BWD_ROWS}
+    for name, cases in REC_BWD_ROWS.items():
+        for (tag, dims), dtn in itertools.product(cases, dts):
+            ins, douts = rec_bwd_case(name, dims, dts[dtn], g)
+            if name == "rglru_gated_bwd":
+                h, _ = rg.rglru_gated_scan(*ins)
+                args = (*ins, h, *douts)
+                kern = functools.partial(rg.rglru_gated_scan_bwd, *args)
+                plain = functools.partial(rglru_gated_scan_bwd_ref, *args)
+                fwd_plain, read = rglru_gated_scan_ref, (*ins, h, *douts)
+                B, S, W = dims
+                flops = RGLRU_BWD_FLOPS * B * S * W
+            else:
+                _, _, states = wkv._forward(*ins)
+                kern = functools.partial(wkv.wkv6_bwd, *ins, states, *douts)
+                plain = functools.partial(wkv6_chunked_bwd_ref, *ins,
+                                          *douts)
+                fwd_plain = wkv6_ref
+                read = (*ins[:5], states, *douts)
+                B, NH, S, hs = dims
+                flops = WKV_BWD_FLOPS * hs * hs * B * NH * S
+            got, again, ref = kern(), kern(), plain()
+            bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+            leaves = [x.detach().clone().requires_grad_() for x in ins]
+            with torch.enable_grad():
+                auto = torch.autograd.grad(fwd_plain(*leaves), leaves, douts)
+            tol = [BWD_RTOL[dtn]] * len(got)
+            if name == "wkv6_bwd":
+                tol[3] = max(tol[3], DLW_RTOL)
+            rel = {what: [err(a, b) / max(float(b.abs().max().float()),
+                                          1e-30) for a, b in zip(got, other)]
+                   for what, other in (("ref", ref), ("autograd", auto))}
+            worst = max(r / t for rs in rel.values() for r, t in zip(rs, tol))
+            shape = f"{tuple(dims)} {dtn}"
+            log(f"  {name} {tag} {dtn}: max_abs_err / max|ref| of each "
+                f"gradient {[f'{x:.3g}' for x in rel['ref']]} against the "
+                f"plain backward, {[f'{x:.3g}' for x in rel['autograd']]} "
+                f"against autograd through the plain forward (worst "
+                f"{worst:.3g} of its tolerance); repeat bit-equal "
+                f"{bit_equal}")
+            if not (worst < 1.0 and bit_equal):
+                raise AssertionError(f"{name} {tag} {dtn}: {rel}, bit-equal "
+                                     f"{bit_equal}")
+            b_ms, b_by = bound(nbytes(*read, *got), flops, PEAK_FP32_FLOPS)
+            rows[name][f"{tag} {dtn}"] = r = dict(
+                shape=shape, max_abs_err=max(err(a, b)
+                                             for a, b in zip(got, ref)),
+                rel_err=rel, bit_equal=bit_equal,
+                ms=graph_ms(kern, reps=5, n=10),
+                plain_ms=graph_ms(plain, reps=2, n=5), library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, peak="fp32 non-tensor")
+            log(f"    {name} {tag} {dtn}: backward {r['ms']:.5f} ms, plain "
+                f"{r['plain_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+            del ins, douts, got, again, ref, leaves, auto, kern, plain, read
+            gc.collect()
+            torch.cuda.empty_cache()
+    return rows
+
+
 def grads_close(a, b, what):
     """Each leaf of two gradient trees within 1e-4 x max(1, max|leaf of
     a|); returns the worst ratio of error to that bound."""
@@ -3051,15 +3215,36 @@ def grads_close(a, b, what):
     return worst
 
 
+def train_routes(cfg):
+    """The forward and backward routes a train step of ``cfg`` launches:
+    K1's where it has attention, K3's gated route's where it has RG-LRU
+    layers, K4's chunked route's where it has RWKV layers."""
+    from repro_torch.models.model import ATTN_KINDS
+
+    kinds = set(cfg.layer_kinds())
+    routes = []
+    if cfg.is_encoder_decoder or kinds & set(ATTN_KINDS):
+        routes += ["flash_attention", "flash_attention_bwd"]
+    if "rglru" in kinds:
+        routes += ["rglru_gated", "rglru_gated_bwd"]
+    if "rwkv" in kinds:
+        routes += ["rwkv6_chunked", "wkv6_bwd"]
+    return routes
+
+
+# every route a train step can launch, forward and backward
+TRAIN_ROUTES = ("flash_attention", "flash_attention_bwd", "rglru_gated",
+                "rglru_gated_bwd", "rwkv6_chunked", "wkv6_bwd")
+
+
 def phase_train_smoke():
     """Phase 8 (b): two steps of ``make_train_step`` on SMOKE params of
-    every arch whose layers have no recurrence, on the card and on the
-    CPU from the same params and ``data.batch(0)``: losses within 1e-5
-    relative, the gradients at step 0 leaf by leaf within 1e-4 x max(1,
-    max|g|), params moved; K1's forward and backward launched by the card
-    steps (counters zeroed just before them, read just after). The two
-    recurrent archs must raise K3's / K4's named RuntimeError on the card.
-    Returns the launches by arch."""
+    every arch, on the card and on the CPU from the same params and
+    ``data.batch(0)``: losses within 1e-5 relative, the gradients at step
+    0 leaf by leaf within 1e-4 x max(1, max|g|), params moved; the forward
+    and backward kernels of the arch's layers (K1, K3's gated route, K4)
+    launched by the card steps (counters zeroed just before them, read
+    just after). Returns the launches by arch."""
     from repro_torch import bridge, configs
     from repro_torch.device import generator_for
     from repro_torch.launch.steps import (batch_to, loss_and_grads,
@@ -3069,10 +3254,9 @@ def phase_train_smoke():
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.tree import tree_leaves
 
-    plain, recurrent = train_smoke_archs()
     cpu = torch.device("cpu")
     launches = {}
-    for arch in plain + recurrent:
+    for arch in configs.ARCHS:
         cfg = configs.get_smoke(arch)
         opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
         step = make_train_step(cfg, opt)
@@ -3080,19 +3264,6 @@ def phase_train_smoke():
             cfg.vocab_size, TRAIN_SMOKE_B, TRAIN_SMOKE_S, seed=SEED))
         batch = data.batch(0, cfg)
         params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
-        if arch in recurrent:
-            want = [item for kind, item in RECURRENT_KINDS.items()
-                    if kind in cfg.layer_kinds()][0]
-            try:
-                step(params, opt.init(params), batch)
-            except RuntimeError as e:
-                if want not in str(e):
-                    raise
-                log(f"  {arch}: the card's train step raised as it must: "
-                    f"{e}")
-                continue
-            raise AssertionError(f"{arch}: a train step through the "
-                                 "recurrent kernels did not raise")
         params_cpu = bridge.params_from_jax(bridge.params_to_numpy(params),
                                             cpu)
         _, _, g_card = loss_and_grads(cfg, params, batch_to(batch, DEV))
@@ -3103,7 +3274,7 @@ def phase_train_smoke():
         for _ in range(2):
             p, s, m = step(p, s, batch)
             losses.append(float(m["loss"]))
-        got = read_counts(("flash_attention", "flash_attention_bwd"))
+        got = read_counts(TRAIN_ROUTES)
         p_c, s_c, losses_c = params_cpu, opt.init(params_cpu), []
         for _ in range(2):
             p_c, s_c, m = step(p_c, s_c, batch)
@@ -3117,38 +3288,76 @@ def phase_train_smoke():
         if not (rel < 1e-5 and moved and all(np.isfinite(losses))):
             raise AssertionError(f"{arch} smoke train step: card {losses} "
                                  f"cpu {losses_c}, moved {moved}")
-        if not (got["flash_attention"] and got["flash_attention_bwd"]):
-            raise AssertionError(f"{arch}: K1 forward/backward not launched "
-                                 f"by the train steps: {got}")
+        idle = [r for r in train_routes(cfg) if not got[r]]
+        if idle:
+            raise AssertionError(f"{arch}: {idle} not launched by the train "
+                                 f"steps: {got}")
         launches[arch] = got
         del params, params_cpu, p, s, p_c, s_c, g_card, g_cpu
     return launches
 
 
 def grad_leaves(grads):
-    """{name: gradient} of the embedding table and of the attention
-    leaves of every layer (stacked by cycle position)."""
+    """{name: gradient} of the embedding table, of the attention leaves
+    and of every leaf of the recurrent blocks of each layer (stacked by
+    cycle position)."""
+    from repro_torch.parallel.sharding import _tree_paths
+
     out = {"embed": grads["embed"]["table"]}
     for pos, tree in enumerate(grads["cycles"]):
         for name in ATTN_LEAVES:
             if name in tree.get("attn", {}):
                 out[f"cycles/{pos}/attn/{name}"] = tree["attn"][name]
+        for block in RECURRENT_BLOCKS:
+            if block in tree:
+                for path, leaf in _tree_paths(tree[block]):
+                    out[f"cycles/{pos}/{block}/{path}"] = leaf
     return out
 
 
-def phase_train_full():
-    """Phase 8 (c): qwen2.5-3b at its published config (36 layers, d
-    2048, 16/2 heads, hd 128, d_ff 11008, vocab 151936), fp32, B=2 x
-    S=256, not cut. First one gradient through ``FlashAttentionFn`` and
-    one through the plain attention path on the card, held on the
-    attention leaves and the embedding; then 3 steps of
-    ``make_train_step`` on one batch (counters zeroed just before, read
-    just after): finite loss and grad norm, the last step's loss below
-    the first's. Prints host
-    wall, device ms (torch.profiler), idle share, device kernels a step,
-    tokens/s and peak memory; then the walls of ``settle`` more steps
-    after the profiled one, and the caching allocator's retries, device
-    allocations and frees in each timed step."""
+@contextlib.contextmanager
+def plain_recurrence():
+    """The model's recurrences on their plain paths under autograd on any
+    device: K3's gated route as ``rglru_gated_scan_ref``, K4 as the
+    model's ``wkv_chunked`` (the port of the JAX model's prefill form),
+    for a reference gradient on the card; never on a counted path."""
+    import types
+
+    from repro_torch.kernels.rglru_scan.ref import rglru_gated_scan_ref
+    from repro_torch.models.rwkv6 import wkv_chunked
+
+    m = ops_modules()
+    rg, wkv = m["rglru_scan"], m["rwkv6_scan"]
+    fns = rg.RGLRUGatedScanFn, wkv.WKV6Fn
+    rg.RGLRUGatedScanFn = types.SimpleNamespace(apply=rglru_gated_scan_ref)
+    wkv.WKV6Fn = types.SimpleNamespace(apply=wkv_chunked)
+    try:
+        yield
+    finally:
+        rg.RGLRUGatedScanFn, wkv.WKV6Fn = fns
+
+
+def phase_train_full(arch):
+    """Phase 8 (c): ``arch`` at its published config (qwen2.5-3b: 36
+    layers, d 2048, 16/2 heads, hd 128, d_ff 11008, vocab 151936;
+    rwkv6-3b: 32 RWKV-6 layers, d 2560, head size 64; recurrentgemma-2b:
+    26 layers of (RG-LRU, RG-LRU, local attention) cycles, d 2560, LRU
+    width 2560, 10 heads of 256, vocab 256000), fp32, B=2 x S=256, not
+    cut. First one gradient through the kernels' autograd Functions and
+    one through the plain paths on the card (``plain_attention``,
+    ``plain_recurrence``), held on the attention and recurrent leaves and
+    the embedding; then 3 steps of ``make_train_step`` through the plain
+    paths, and from the same params 3 through the kernels (counters
+    zeroed just before, read just after): the same losses within
+    LOSS_RTOL, finite loss and grad norm, the arch's forward and backward
+    kernels launched; with the profiled step and ``settle`` more, the
+    loss falls over the run (its last step's below the first's). Prints
+    host wall, device ms
+    (torch.profiler), idle share, device kernels a step, the port's
+    kernels' share by name, tokens/s and peak memory; then the walls of
+    ``settle`` more steps after the profiled one, and the caching
+    allocator's retries, device allocations and frees in each timed
+    step."""
     from repro_torch import configs
     from repro_torch.device import generator_for
     from repro_torch.launch.steps import (batch_to, loss_and_grads,
@@ -3158,40 +3367,55 @@ def phase_train_full():
     from repro_torch.training.optimizer import AdamW
 
     c = TRAIN_FULL
-    cfg = configs.get_config(c["arch"]).replace(
+    cfg = configs.get_config(arch).replace(
         param_dtype="float32", activation_dtype="float32")
+    routes = train_routes(cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
     data = SyntheticTokenStream(DataConfig(cfg.vocab_size, c["B"], c["S"],
                                            seed=SEED))
     batch = batch_to(data.batch(0, cfg), DEV)
     _, _, g_k = loss_and_grads(cfg, params, batch)
     g_k = grad_leaves(g_k)
-    with plain_attention():
+    with plain_attention(), plain_recurrence():
         _, _, g_p = loss_and_grads(cfg, params, batch)
     g_p = grad_leaves(g_p)
     worst = {}
     for name, a in g_k.items():
         tol = 1e-4 * max(1.0, float(g_p[name].abs().max()))
         worst[name] = err(a, g_p[name]) / tol
-    log(f"  gradients through FlashAttentionFn vs the plain attention path, "
-        f"error / tolerance (1e-4 x max(1, max|g|)): "
-        f"{json.dumps({k: round(v, 4) for k, v in worst.items()})}")
+    top = sorted(worst.items(), key=lambda x: -x[1])[:12]
+    log(f"  {arch}: gradients through the kernels vs the plain paths, "
+        f"error / tolerance (1e-4 x max(1, max|g|)), the worst 12 of "
+        f"{len(worst)} leaves: "
+        f"{json.dumps({k: round(v, 4) for k, v in top})}")
     if not max(worst.values()) < 1.0:
-        raise AssertionError(f"full-width gradients disagree: {worst}")
-    del g_k, g_p
+        raise AssertionError(f"{arch} full-width gradients disagree: {top}")
+    del g_k, g_p, params
     gc.collect()
     torch.cuda.empty_cache()
 
     # the training driver's optimizer for a run of this many steps
     # (launch/train.py): lr 3e-4 reached after a warmup of 10 steps (at
-    # the full rate from step 0, on an H100: losses 12.458, 10.925,
-    # 13.833)
+    # the full rate from step 0, qwen2.5-3b on an H100: losses 12.458,
+    # 10.925, 13.833)
     opt = AdamW(lr=3e-4, warmup_steps=max(10, c["steps"] // 20),
                 total_steps=c["steps"])
     step = make_train_step(cfg, opt)
+    # the reference trajectory: the same steps through the plain paths,
+    # from the same params (drawn again from the seed; one tree at a time)
+    params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+    state, plain_losses = opt.init(params), []
+    with plain_attention(), plain_recurrence():
+        for _ in range(c["steps"]):
+            params, state, m = step(params, state, batch)
+            plain_losses.append(float(m["loss"]))
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
     state = opt.init(params)
     reset_counts()
     losses, gnorms, walls, allocs = [], [], [], []
@@ -3213,7 +3437,7 @@ def phase_train_full():
         losses.append(loss)
         gnorms.append(gnorm)
         walls.append(wall)
-    launches = read_counts(("flash_attention", "flash_attention_bwd"))
+    launches = read_counts(TRAIN_ROUTES)
     peak = torch.cuda.max_memory_allocated()
     # device time of one more step on the same batch, by torch.profiler
     # (the sum of its device kernels' times)
@@ -3221,46 +3445,54 @@ def phase_train_full():
     del params, state   # one param tree less: the update is not in place
 
     def one():
-        holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
+        holder["p"], holder["s"], m = step(holder["p"], holder["s"], batch)
+        run_losses.append(float(m["loss"]))
 
+    run_losses = list(losses)
     kern = device_kernels(one, 1)
     # more steps after the profiled one: whether the walls settle
     settled = []
     for _ in range(c["settle"]):
-        holder["p"], holder["s"], _l, _g, w = timed_step(holder["p"],
-                                                         holder["s"])
+        holder["p"], holder["s"], loss, _g, w = timed_step(holder["p"],
+                                                           holder["s"])
         settled.append(w)
+        run_losses.append(loss)
     dev_ms = sum(t for _, t, _c in kern)
     n_kern = sum(cnt for _, _t, cnt in kern)
-    # K1's kernels by name: the forward (fa_tc_kernel, fa_kernel) and the
-    # backward's D pass, dK/dV, group reduction and dQ kernels
-    fa_by_name = {}
+    # the port's kernels by name: K1's forward and its backward's D pass,
+    # dK/dV, group reduction and dQ kernels; K3's and K4's forward and
+    # backward kernels
+    by_name = {}
     for name, t, cnt in kern:
-        m = re.search(r"\bfa_(?:tc_kernel|kernel|bwd_\w+)", name)
+        m = PORT_KERNEL_RE.search(name)
         if m:
-            ms, n = fa_by_name.get(m.group(0), (0.0, 0.0))
-            fa_by_name[m.group(0)] = (ms + t, n + cnt)
-    fa_ms = sum(t for t, _n in fa_by_name.values())
+            ms, n = by_name.get(m.group(0), (0.0, 0.0))
+            by_name[m.group(0)] = (ms + t, n + cnt)
+    port_ms = sum(t for t, _n in by_name.values())
     wall = statistics.median(walls)
-    out = {"losses": losses, "grad_norms": gnorms, "wall_ms": walls,
-           "device_ms_profiler": dev_ms, "idle_share": 1 - dev_ms / wall,
-           "device_kernels": n_kern, "attention_kernels_ms": fa_ms,
-           "attention_kernels_by_name": fa_by_name,
+    out = {"arch": arch, "losses": losses, "plain_losses": plain_losses,
+           "run_losses": run_losses, "grad_norms": gnorms,
+           "wall_ms": walls, "device_ms_profiler": dev_ms,
+           "idle_share": 1 - dev_ms / wall, "device_kernels": n_kern,
+           "port_kernels_ms": port_ms, "port_kernels_by_name": by_name,
            "tokens_per_s": c["B"] * c["S"] / (wall / 1e3),
            "settled_wall_ms": settled,
            "tokens_per_s_settled": (c["B"] * c["S"]
                                     / (statistics.median(settled) / 1e3)),
            "allocator_by_step": allocs,
            "max_memory_allocated_bytes": peak, "launches": launches,
-           "grad_check": worst,
+           "grad_check_worst": dict(top),
            "top": [(k[:60], t) for k, t, _c in kern[:8]]}
     log("  " + json.dumps({"train_full": out}))
-    log(f"  qwen2.5-3b full width fp32 B={c['B']} S={c['S']}: losses "
-        f"{losses}, grad norms {gnorms}; step host wall {wall:.3f} ms "
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    log(f"  {arch} full width fp32 B={c['B']} S={c['S']}: losses "
+        f"{losses} (through the plain paths {plain_losses}, rel "
+        f"{loss_rel:.3g}), grad norms {gnorms}, the whole run's losses "
+        f"{run_losses}; step host wall {wall:.3f} ms "
         f"(median of {c['steps']}), device {dev_ms:.3f} ms (torch.profiler, "
         f"one step), idle share {1 - dev_ms / wall:.3f}, device kernels a "
-        f"step {n_kern:.0f} (K1 forward + backward kernels {fa_ms:.3f} "
-        f"ms), {out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"step {n_kern:.0f} (the port's kernels {port_ms:.3f} ms), "
+        f"{out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
         f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)}")
     log(f"  step walls {[round(w, 1) for w in walls]} ms, then after the "
         f"profiled step {[round(w, 1) for w in settled]} ms "
@@ -3268,32 +3500,38 @@ def phase_train_full():
         f"the caching allocator a step ({', '.join(ALLOC_STATS)}): "
         + "; ".join(" ".join(str(a[k]) for k in ALLOC_STATS)
                     for a in allocs))
-    log(f"  K1's share of the step's device time: {fa_ms:.3f} of "
-        f"{dev_ms:.3f} ms ({fa_ms / dev_ms:.4f}); by kernel (ms, launches "
-        "a step): " + "; ".join(f"{k} {t:.3f} ({n:.0f})" for k, (t, n) in
-                               sorted(fa_by_name.items(),
-                                      key=lambda x: -x[1][0])))
-    # the loss falls over the 3 steps (the last below the first); a step
-    # may rise: Adam's first updates move every weight by about lr, and
-    # the second overshoots on the fresh model (on an H100: 12.458,
-    # 10.590, 10.982 with this schedule)
-    if not (all(np.isfinite(losses)) and all(np.isfinite(gnorms))
-            and losses[-1] < losses[0]):
-        raise AssertionError(f"full-width losses {losses}, grad norms "
-                             f"{gnorms}")
-    if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
-        raise AssertionError(f"full-width step launched {launches}")
+    log(f"  the port's kernels' share of the step's device time: "
+        f"{port_ms:.3f} of {dev_ms:.3f} ms ({port_ms / dev_ms:.4f}); by "
+        "kernel (ms, launches a step): "
+        + "; ".join(f"{k} {t:.3f} ({n:.0f})" for k, (t, n) in
+                    sorted(by_name.items(), key=lambda x: -x[1][0])))
+    # the loss falls over the run (its last step below its first); a
+    # step may rise: Adam's first updates move every weight by about lr,
+    # and the second or third overshoots on the fresh model, through the
+    # plain paths as through the kernels (on an H100 with this schedule:
+    # qwen2.5-3b 12.458, 10.590, 10.982; rwkv6-3b 11.560, 9.825, 13.174,
+    # then 10.896, 10.970, 8.859, 8.848)
+    if not (all(np.isfinite(run_losses)) and all(np.isfinite(gnorms))
+            and loss_rel < LOSS_RTOL and run_losses[-1] < run_losses[0]):
+        raise AssertionError(f"{arch} full-width losses {losses}, through "
+                             f"the plain paths {plain_losses}, over the run "
+                             f"{run_losses}, grad norms {gnorms}")
+    idle = [r for r in routes if not launches[r]]
+    if idle:
+        raise AssertionError(f"{arch} full-width steps launched "
+                             f"{launches}: {idle} idle")
     del holder
     gc.collect()
     torch.cuda.empty_cache()
     return out, launches
 
 
-def phase_train_resume():
-    """Phase 8 (d): ``train`` crashes at step 6 (a checkpoint at step 4),
-    resumes, and its losses are bit-equal to one uninterrupted run's; the
-    last checkpoint restores on the CPU as on the card, bit for bit.
-    Counters zeroed before the three runs, read after."""
+def phase_train_resume(arch):
+    """Phase 8 (d): ``train(arch=arch, scale="20m")`` crashes at step 6 (a
+    checkpoint at step 4), resumes, and its losses are bit-equal to one
+    uninterrupted run's; the last checkpoint restores on the CPU as on
+    the card, bit for bit. Counters zeroed before the three runs, read
+    after: the arch's forward and backward kernels launched."""
     from repro_torch import configs
     from repro_torch.device import generator_for
     from repro_torch.launch.train import scale_config, train
@@ -3302,7 +3540,8 @@ def phase_train_resume():
     from repro_torch.training.optimizer import AdamW
     from repro_torch.training.tree import tree_leaves
 
-    kw = TRAIN_RESUME
+    kw = dict(TRAIN_RESUME, arch=arch)
+    cfg = scale_config(configs.get_config(arch), kw["scale"])
     root = ROOT / "build" / "phase8_checkpoints"
     shutil.rmtree(root, ignore_errors=True)
     try:
@@ -3311,10 +3550,9 @@ def phase_train_resume():
                         simulate_failure_at=TRAIN_CRASH_AT)
         resumed = train(**kw, ckpt_dir=str(root / "a"), resume=True)
         whole = train(**kw, ckpt_dir=str(root / "b"))
-        launches = read_counts(("flash_attention", "flash_attention_bwd"))
-        ckpt = root / "a" / f"{kw['arch']}-{kw['scale']}"
+        launches = read_counts(TRAIN_ROUTES)
+        ckpt = root / "a" / f"{arch}-{kw['scale']}"
         last = CKPT.latest_step(ckpt)
-        cfg = scale_config(configs.get_config(kw["arch"]), kw["scale"])
         opt = AdamW()
         a, b = (CKPT.restore_checkpoint(ckpt, last, tmpl,
                                         opt.state_shapes(tmpl), device=dev)
@@ -3327,7 +3565,7 @@ def phase_train_resume():
     finally:
         shutil.rmtree(root, ignore_errors=True)
     start = kw["steps"] - len(resumed["losses"])
-    out = {"crashed_at": crashed.get("crashed_at"),
+    out = {"arch": arch, "crashed_at": crashed.get("crashed_at"),
            "resumed_from": start, "losses_resumed": resumed["losses"],
            "losses_whole": whole["losses"], "last_checkpoint": last,
            "cpu_restore_equal": same, "launches": launches}
@@ -3335,43 +3573,52 @@ def phase_train_resume():
     if not (crashed.get("crashed_at") == TRAIN_CRASH_AT and start == 4
             and crashed["losses"] == whole["losses"][:TRAIN_CRASH_AT]
             and resumed["losses"] == whole["losses"][start:]):
-        raise AssertionError(f"resumed losses are not the uninterrupted "
-                             f"run's: {out}, crashed {crashed['losses']}")
+        raise AssertionError(f"{arch}: resumed losses are not the "
+                             f"uninterrupted run's: {out}, crashed "
+                             f"{crashed['losses']}")
     if not (same and a[0] == b[0] == last):
-        raise AssertionError("the checkpoint restores differently on the "
-                             "CPU")
-    if not (launches["flash_attention"] and launches["flash_attention_bwd"]):
-        raise AssertionError(f"the driver's runs launched {launches}")
-    log(f"  crash at step {TRAIN_CRASH_AT}, resumed from step {start}: "
-        f"losses bit-equal to the uninterrupted run's ({len(resumed['losses'])}"
-        f" steps); step {last}'s checkpoint restores bit-equal on the CPU; "
-        f"launches {json.dumps(launches)}")
+        raise AssertionError(f"{arch}: the checkpoint restores differently "
+                             "on the CPU")
+    idle = [r for r in train_routes(cfg) if not launches[r]]
+    if idle:
+        raise AssertionError(f"{arch}: the three train runs launched "
+                             f"{launches}: {idle} idle")
+    log(f"  {arch}: crash at step {TRAIN_CRASH_AT}, resumed from step "
+        f"{start}: losses bit-equal to the uninterrupted run's "
+        f"({len(resumed['losses'])} steps); step {last}'s checkpoint "
+        f"restores bit-equal on the CPU; launches {json.dumps(launches)}")
     return out, launches
 
 
 def phase_train():
-    """Phase 8, (a)-(d). Returns the backward's rows and the launches of
-    K1's forward and backward by path."""
+    """Phase 8, (a)-(d). Returns the backward kernels' rows by kernel and
+    the launches of the train routes by path."""
     t0 = time.monotonic()
-    rows = phase_train_kernels()
+    rows = {"flash_attention_bwd": phase_train_kernels()}
     phase_bwd_plans()
+    rows.update(phase_train_rec_kernels())
     log(f"  phase 8 (a) took {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     smoke = phase_train_smoke()
     log(f"  phase 8 (b) took {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    _, full = phase_train_full()
-    log(f"  phase 8 (c) took {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    _, resume = phase_train_resume()
-    log(f"  phase 8 (d) took {time.monotonic() - t0:.1f} s")
+    full, resume = {}, {}
+    for arch in TRAIN_FULL_ARCHS:
+        t0 = time.monotonic()
+        _, full[arch] = phase_train_full(arch)
+        log(f"  phase 8 (c) {arch} took {time.monotonic() - t0:.1f} s")
+    for arch in TRAIN_RESUME_ARCHS:
+        t0 = time.monotonic()
+        _, resume[arch] = phase_train_resume(arch)
+        log(f"  phase 8 (d) {arch} took {time.monotonic() - t0:.1f} s")
     paths = {}
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in TRAIN_ROUTES:
         paths[name] = {
-            "train smoke steps, 8 archs (phase 8b)":
+            f"train smoke steps, {len(smoke)} archs (phase 8b)":
                 sum(n[name] for n in smoke.values()),
-            "train qwen2.5-3b full width (phase 8c)": full[name],
-            "train driver crash + resume (phase 8d)": resume[name]}
+            **{f"train {arch} full width (phase 8c)": n[name]
+               for arch, n in full.items() if n[name]},
+            **{f"train() {arch} crash + resume (phase 8d)": n[name]
+               for arch, n in resume.items() if n[name]}}
     return rows, paths
 
 
@@ -3562,10 +3809,12 @@ def ptxas_spills(lines):
 
 
 # the functions that must not spill, by name fragment: K1-K3, K4's chunked
-# kernels, K5's round kernel, K6's tensor-core kernel and its combine
+# kernels, the backward kernels of K1, K3 and K4, K5's round kernel, K6's
+# tensor-core kernel and its combine
 NO_SPILL = {"flash_attention": ("",), "flash_attention_bwd": ("",),
             "decode_attention": ("",),
             "rglru_scan": ("",), "rwkv6_scan": ("wkv_chunk",),
+            "rglru_scan_bwd": ("",), "rwkv6_scan_bwd": ("",),
             "planner_argmax": ("plan_round",),
             "int8_matmul": ("int8_mm_tc", "int8_combine")}
 
@@ -3948,7 +4197,8 @@ def main() -> int:
 
     log("phase 8: training on the card")
     t0 = time.monotonic()
-    rows["flash_attention_bwd"], train_paths = phase_train()
+    train_rows, train_paths = phase_train()
+    rows.update(train_rows)
     log(f"  phase 8 took {time.monotonic() - t0:.1f} s")
 
     kernels = []
@@ -3960,7 +4210,7 @@ def main() -> int:
             by_path = {SCAN_PATH: scan_launches}
         elif name == "planner_argmax":
             by_path = {ARGMAX_PATH: argmax_launches}
-        elif name == "flash_attention_bwd":
+        elif name in TRAINING_ONLY:
             by_path = dict(train_paths[name])
         else:
             by_path = {f"{arch}:{tag}": n[name]

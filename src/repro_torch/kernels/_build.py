@@ -2,8 +2,8 @@
 and check what their wrappers pass in.
 
 Each kernel package keeps its source under ``csrc/<name>.cu`` with a
-plain ``extern "C"`` interface (K1's backward, ``flash_attention_bwd``,
-under ``flash_attention/csrc/``). On first use the source is compiled for
+plain ``extern "C"`` interface (the backward kernels, ``<name>_bwd``,
+beside their forward: ``PACKAGE_OF``). On first use the source is compiled for
 Hopper (``sm_90a``) into ``build/kernels/<name>-<hash>.so`` at the root
 of the checkout; the hash is of the source, so an edit rebuilds and a
 stale library is never loaded. Nothing is built at import time.
@@ -37,7 +37,9 @@ _lock = threading.Lock()
 
 
 # kernels whose source sits in another kernel's package
-PACKAGE_OF = {"flash_attention_bwd": "flash_attention"}
+PACKAGE_OF = {"flash_attention_bwd": "flash_attention",
+              "rglru_scan_bwd": "rglru_scan",
+              "rwkv6_scan_bwd": "rwkv6_scan"}
 
 
 def source(name: str) -> Path:

@@ -15,6 +15,12 @@ a prefill (S > 1) the chunked scan, a decode step (S = 1) one thread per
 (row, channel). A CPU tensor runs the plain version in ``ref.py``. There
 is no fallback from one to the other. ``LAUNCHES`` counts the calls that
 launched, either route; ``GATED_LAUNCHES`` those of the gated route.
+
+``RGLRUGatedScanFn`` is the gated route under autograd: its forward is
+``rglru_gated_scan``, its backward ``rglru_gated_scan_bwd`` (the kernel
+of ``csrc/rglru_scan_bwd.cu`` on the card, counted in ``BWD_LAUNCHES``;
+``rglru_gated_scan_bwd_ref`` on the CPU). The (a, b) route has no
+backward and refuses grad on the card.
 """
 
 from __future__ import annotations
@@ -25,20 +31,24 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_ref,
+from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_bwd_ref,
+                                                rglru_gated_scan_ref,
                                                 rglru_scan_ref)
 
 NAME = "rglru_scan"
-# the ROADMAP entry of this kernel's backward, named when a launch under
-# grad is refused (``_build.refuse_grad``)
+BWD_NAME = "rglru_scan_bwd"
+# the ROADMAP entry of the (a, b) route's backward, named when a launch
+# under grad is refused (``_build.refuse_grad``)
 GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
-             "row 'K3 backward', queued for recurrentgemma-2b's train step")
+             "not queued: K3's (a, b) route, which no model calls")
 DTYPES = _build.DTYPE_CODES
 
-# wrapper calls that launched, either route, and those of the gated
-# route, since the last reset; read and reset by chip_smoke.py
+# wrapper calls that launched, either route, those of the gated route,
+# and the gated route's backward calls, since the last reset; read and
+# reset by chip_smoke.py
 LAUNCHES = 0
 GATED_LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -59,6 +69,15 @@ def _lib_gated():
     if fn.argtypes is None:
         fn.restype = _I
         fn.argtypes = [_P] * 7 + [_I] * 4 + [_L] * 8 + [_P]
+    return fn
+
+
+def _lib_bwd():
+    lib = _build.load(BWD_NAME)
+    fn = lib.faillite_rglru_gated_scan_bwd
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 14 + [_I] * 4 + [_L] * 6 + [_P]
     return fn
 
 
@@ -131,15 +150,7 @@ def rglru_scan(a, b, h0, *, h_last=None):
     return h, h_last
 
 
-def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
-    """ga, gx, xb: (B,S,W) float32 or bfloat16, one dtype; log_lambda (W,)
-    float32; h0: (B,W) float32 -> (h (B,S,W) fp32, h_last (B,W) fp32).
-
-    h_t = a_t h_{t-1} + b_t with (a, b) = ``rglru_gates_ref(ga, gx, xb,
-    log_lambda)``. When ``h_last`` is given, the last state is written into
-    it (it may be ``h0`` itself) and returned.
-    """
-    global LAUNCHES, GATED_LAUNCHES
+def _check_gated(ga, gx, xb, log_lambda, h0, h_last):
     if xb.dim() != 3 or not (ga.shape == gx.shape == xb.shape):
         raise ValueError(f"want ga, gx, xb (B,S,W) of one shape; got "
                          f"{[tuple(t.shape) for t in (ga, gx, xb)]}")
@@ -156,14 +167,25 @@ def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
     if log_lambda.dtype != torch.float32:
         raise TypeError(f"want float32 log_lambda; got {log_lambda.dtype}")
     _check_state(xb, h0, h_last)
+    if xb.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {xb.device}")
+
+
+def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
+    """ga, gx, xb: (B,S,W) float32 or bfloat16, one dtype; log_lambda (W,)
+    float32; h0: (B,W) float32 -> (h (B,S,W) fp32, h_last (B,W) fp32).
+
+    h_t = a_t h_{t-1} + b_t with (a, b) = ``rglru_gates_ref(ga, gx, xb,
+    log_lambda)``. When ``h_last`` is given, the last state is written into
+    it (it may be ``h0`` itself) and returned. The launch is invisible to
+    autograd: ``RGLRUGatedScanFn`` is the differentiable call.
+    """
+    global LAUNCHES, GATED_LAUNCHES
+    _check_gated(ga, gx, xb, log_lambda, h0, h_last)
     if xb.device.type == "cpu":
         return _cpu_result(*rglru_gated_scan_ref(ga, gx, xb, log_lambda, h0),
                            h_last)
-    if xb.device.type != "cuda":
-        raise ValueError(f"unsupported device {xb.device}")
-    _build.refuse_grad("K3 (RG-LRU scan, gated route)", GRAD_ITEM, ga, gx,
-                       xb, log_lambda, h0)
-    B, S, _ = xb.shape
+    B, S, W = xb.shape
     if any(t.stride(-1) != 1 for t in (ga, gx, xb)) \
             or not log_lambda.is_contiguous():
         raise ValueError("ga, gx and xb need a unit stride on the width, "
@@ -181,3 +203,61 @@ def rglru_gated_scan(ga, gx, xb, log_lambda, h0, *, h_last=None):
         LAUNCHES += 1
         GATED_LAUNCHES += 1
     return h, h_last
+
+
+def rglru_gated_scan_bwd(ga, gx, xb, log_lambda, h0, h, dh, dh_last):
+    """Gradients (dga, dgx, dxb, dlog_lambda, dh0) of ``rglru_gated_scan``
+    at (ga, gx, xb, log_lambda, h0), given its output ``h`` (B,S,W) fp32
+    and the gradients ``dh`` (B,S,W) of h and ``dh_last`` (B,W) of the
+    last state: the backward kernel on the card, the plain version on the
+    CPU. Each gradient has its input's dtype."""
+    global BWD_LAUNCHES
+    _check_gated(ga, gx, xb, log_lambda, h0, None)
+    B, S, W = xb.shape
+    for name, t, shape in (("h", h, (B, S, W)), ("dh", dh, (B, S, W)),
+                           ("dh_last", dh_last, (B, W))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.device != xb.device or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32 on {xb.device}")
+    if xb.device.type == "cpu":
+        return rglru_gated_scan_bwd_ref(ga, gx, xb, log_lambda, h0, h, dh,
+                                        dh_last)
+    if any(t.stride(-1) != 1 for t in (ga, gx, xb)):
+        raise ValueError("ga, gx and xb need a unit stride on the width")
+    h0, h, dh, dh_last, log_lambda = (
+        t.contiguous() for t in (h0, h, dh, dh_last, log_lambda))
+    grads = [torch.empty((B, S, W), dtype=xb.dtype, device=xb.device)
+             for _ in range(3)]
+    dlam = torch.empty((W,), dtype=torch.float32, device=xb.device)
+    dh0 = torch.empty((B, W), dtype=torch.float32, device=xb.device)
+    part = torch.empty((B, W), dtype=torch.float32, device=xb.device)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    err = _lib_bwd()(
+        ga.data_ptr(), gx.data_ptr(), xb.data_ptr(), log_lambda.data_ptr(),
+        h0.data_ptr(), h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
+        *(g.data_ptr() for g in grads), dlam.data_ptr(), dh0.data_ptr(),
+        part.data_ptr(), DTYPES[xb.dtype], B, S, W, *ga.stride()[:2],
+        *gx.stride()[:2], *xb.stride()[:2], stream)
+    _build.check(err, BWD_NAME)
+    with _count_lock:
+        BWD_LAUNCHES += 1
+    return (*grads, dlam, dh0)
+
+
+class RGLRUGatedScanFn(torch.autograd.Function):
+    """``rglru_gated_scan`` under autograd: (ga, gx, xb, log_lambda, h0)
+    -> (h, h_last), both fresh tensors. The forward keeps its inputs and
+    h; the backward is ``rglru_gated_scan_bwd``. On CPU tensors both run
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, ga, gx, xb, log_lambda, h0):
+        h, h_last = rglru_gated_scan(ga, gx, xb, log_lambda, h0)
+        ctx.save_for_backward(ga, gx, xb, log_lambda, h0, h)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        return rglru_gated_scan_bwd(*ctx.saved_tensors, dh.float(),
+                                    dh_last.float())

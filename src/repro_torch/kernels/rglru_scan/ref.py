@@ -6,7 +6,9 @@ associative scan's numbers to fp32 rounding. ``rglru_gates_ref`` is the
 elementwise tail of the model's gates (``models/rglru.py`` ``_gates``, the
 one copy of that arithmetic), and ``rglru_gated_scan_ref`` the two in a
 row: what the gated route computes. ``rglru_scan_chunked_ref`` is the CUDA
-kernel's chunked algorithm, for the tests.
+kernel's chunked algorithm, for the tests. ``rglru_gated_scan_bwd_ref`` is
+the gated route's reverse pass: the oracle of ``csrc/rglru_scan_bwd.cu``
+and the backward of ``RGLRUGatedScanFn`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -49,6 +51,51 @@ def rglru_gates_ref(ga, gx, xb, log_lambda):
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     b = mult * i * xb.float()
     return a, b
+
+
+def rglru_gated_scan_bwd_ref(ga, gx, xb, log_lambda, h0, h, dh, dh_last):
+    """Gradients of ``rglru_gated_scan_ref`` at (ga, gx, xb, log_lambda,
+    h0), given its output ``h`` (B,S,W) and the gradients ``dh`` of h and
+    ``dh_last`` (B,W) of the last state.
+
+    The adjoint of h from the last step back, g_t = dh_t + a_{t+1} g_{t+1}
+    with g_{S-1} = dh_{S-1} + dh_last, gives da_t = g_t h_{t-1} (h_{-1} =
+    h0), db_t = g_t and dh0 = a_0 g_0; then the chain through
+    ``rglru_gates_ref``. d mult / d log_a is -e^{2 log_a} / mult where
+    the clamp of 1 - e^{2 log_a} at 1e-12 is not active and 0 where it
+    is, as ``torch.clamp`` and ``jnp.maximum`` give off a tie.
+    dlog_lambda sums over (B, S) in a fixed order.
+
+    Returns (dga, dgx, dxb, dlog_lambda, dh0), each in its input's dtype.
+    """
+    r = torch.sigmoid(ga.float())
+    i = torch.sigmoid(gx.float())
+    x = xb.float()
+    sp_c = -RGLRU_C * F.softplus(log_lambda.float())
+    log_a = sp_c * r
+    a = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    one_m = 1.0 - e2
+    mult = torch.sqrt(torch.clamp(one_m, min=1e-12))
+    dh = dh.float()
+    h_prev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], dim=1)
+    g = torch.empty_like(dh)
+    carry = dh_last.float()
+    for t in range(dh.shape[1] - 1, -1, -1):
+        gt = dh[:, t] + carry
+        g[:, t] = gt
+        carry = a[:, t] * gt
+    dh0 = carry
+    da = g * h_prev
+    dmult = torch.where(one_m > 1e-12, -e2 / mult, torch.zeros_like(mult))
+    dlog_a = da * a + g * i * x * dmult
+    dga = dlog_a * sp_c * r * (1.0 - r)
+    dgx = g * mult * x * i * (1.0 - i)
+    dxb = g * mult * i
+    dlam = ((dlog_a * r).sum((0, 1)) * -RGLRU_C
+            * torch.sigmoid(log_lambda.float()))
+    return (dga.to(ga.dtype), dgx.to(gx.dtype), dxb.to(xb.dtype),
+            dlam.to(log_lambda.dtype), dh0)
 
 
 def rglru_gated_scan_ref(ga, gx, xb, log_lambda, h0):

@@ -12,6 +12,12 @@ launches over chunks of ``CHUNK`` steps; its plain version is
 ``wkv6_chunked_ref``), a decode step (S = 1) the recurrence. Both are
 counted once per call in ``LAUNCHES``; ``CHUNKED_LAUNCHES`` counts the
 calls that took the chunked route.
+
+``WKV6Fn`` is the differentiable call: its forward is either route, and
+keeps each chunk's incoming state (the chunked route's ``states``
+buffer), its backward is ``wkv6_bwd`` (the kernels of
+``csrc/rwkv6_scan_bwd.cu`` on the card, counted in ``BWD_LAUNCHES``;
+``wkv6_chunked_bwd_ref`` on the CPU), for every S.
 """
 
 from __future__ import annotations
@@ -22,21 +28,21 @@ import threading
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked_bwd_ref,
+                                                wkv6_ref)
 
 NAME = "rwkv6_scan"
-# the ROADMAP entry of this kernel's backward, named when a launch under
-# grad is refused (``_build.refuse_grad``)
-GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
-             "row 'K4 backward', queued for rwkv6-3b's train step")
+BWD_NAME = "rwkv6_scan_bwd"
 HEAD_SIZES = (8, 16, 32, 64)
 CHUNK = 32                 # steps per chunk of the prefill route (csrc)
 DTYPES = _build.DTYPE_CODES
 
-# wrapper calls that launched, either route, and those of the chunked
-# route, since the last reset; read and reset by chip_smoke.py
+# wrapper calls that launched, either route, those of the chunked route,
+# and the backward's calls, since the last reset; read and reset by
+# chip_smoke.py
 LAUNCHES = 0
 CHUNKED_LAUNCHES = 0
+BWD_LAUNCHES = 0
 _count_lock = threading.Lock()
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -57,6 +63,15 @@ def _lib_chunked():
     if fn.argtypes is None:
         fn.restype = _I
         fn.argtypes = [_P] * 10 + [_I] * 5 + [_L] * 19 + [_P]
+    return fn
+
+
+def _lib_bwd():
+    lib = _build.load(BWD_NAME)
+    fn = lib.faillite_wkv6_bwd
+    if fn.argtypes is None:
+        fn.restype = _I
+        fn.argtypes = [_P] * 17 + [_I] * 5 + [_L] * 15 + [_P]
     return fn
 
 
@@ -93,7 +108,8 @@ def _check(r, k, v, lw, u, s0, s_out):
 
 
 def _launch(r, k, v, lw, u, s0, y, s_out, stream):
-    """Launch the route of ``chunked_route(S)`` on checked tensors."""
+    """Launch the route of ``chunked_route(S)`` on checked tensors:
+    (CUDA error code, the chunked route's ``states`` buffer or None)."""
     B, S, nh, hs = r.shape
     strides = (DTYPES[r.dtype], B, nh, S, hs,
                *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -102,7 +118,7 @@ def _launch(r, k, v, lw, u, s0, y, s_out, stream):
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
             u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr())
     if not chunked_route(S):
-        return _lib()(*ptrs, *strides)
+        return _lib()(*ptrs, *strides), None
     nc = n_chunks(S)
     # each chunk's state increment, then its incoming state: never s0 or
     # s_out, which may be one tensor
@@ -111,26 +127,33 @@ def _launch(r, k, v, lw, u, s0, y, s_out, stream):
     decay = torch.empty((B, nh, nc, hs), dtype=torch.float32,
                         device=r.device)
     return _lib_chunked()(*ptrs, states.data_ptr(), decay.data_ptr(),
-                          *strides)
+                          *strides), states
 
 
 def wkv6(r, k, v, lw, u, s0, *, s_out=None):
     """WKV-6 from state ``s0`` -> (y (B,S,nh,hs) fp32, s_out).
 
     When ``s_out`` is given, the final state is written into it (it may be
-    ``s0`` itself) and returned.
+    ``s0`` itself) and returned. The launch is invisible to autograd:
+    ``WKV6Fn`` is the differentiable call.
     """
+    return _forward(r, k, v, lw, u, s0, s_out)[:2]
+
+
+def _forward(r, k, v, lw, u, s0, s_out=None):
+    """(y, s_out, each chunk's incoming state (B,nh,nc,hs,hs) fp32): the
+    kernels' ``states`` buffer after a chunked launch, s0 itself after a
+    recurrent one (one chunk); None on the CPU."""
     global LAUNCHES, CHUNKED_LAUNCHES
     _check(r, k, v, lw, u, s0, s_out)
     if r.device.type == "cpu":
         y, s = wkv6_ref(r, k, v, lw, u, s0)
         if s_out is None:
-            return y, s
+            return y, s, None
         s_out.copy_(s)
-        return y, s_out
+        return y, s_out, None
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
-    _build.refuse_grad("K4 (WKV-6 scan)", GRAD_ITEM, r, k, v, lw, u, s0)
     B, S, nh, hs = r.shape
     if hs not in HEAD_SIZES:
         raise ValueError(f"head size {hs} not in {HEAD_SIZES}")
@@ -145,8 +168,83 @@ def wkv6(r, k, v, lw, u, s0, *, s_out=None):
                          "contiguous")
     y = torch.empty((B, S, nh, hs), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    _build.check(_launch(r, k, v, lw, u, s0, y, s_out, stream), NAME)
+    err, states = _launch(r, k, v, lw, u, s0, y, s_out, stream)
+    _build.check(err, NAME)
     with _count_lock:
         LAUNCHES += 1
         CHUNKED_LAUNCHES += chunked_route(S)
-    return y, s_out
+    if states is None:
+        states = s0[:, :, None]
+    return y, s_out, states
+
+
+def wkv6_bwd(r, k, v, lw, u, s0, states, dy, ds_out):
+    """Gradients (dr, dk, dv, dlw, du, ds0) of ``wkv6`` at (r, k, v, lw,
+    u, s0), given the gradients ``dy`` (B,S,nh,hs) of y and ``ds_out``
+    (B,nh,hs,hs) of the final state: the backward kernels on the card,
+    reading ``states``, each chunk's incoming state from ``_forward``;
+    the plain version ``wkv6_chunked_bwd_ref`` on the CPU (``states`` is
+    not read). dr, dk, dv have r's dtype, the rest fp32."""
+    global BWD_LAUNCHES
+    _check(r, k, v, lw, u, s0, ds_out)
+    B, S, nh, hs = r.shape
+    if tuple(dy.shape) != (B, S, nh, hs) or dy.dtype != torch.float32 \
+            or dy.device != r.device:
+        raise ValueError(f"dy must be ({B},{S},{nh},{hs}) float32 on "
+                         f"{r.device}")
+    if r.device.type == "cpu":
+        return wkv6_chunked_bwd_ref(r, k, v, lw, u, s0, dy, ds_out)
+    if r.device.type != "cuda":
+        raise ValueError(f"unsupported device {r.device}")
+    if hs not in HEAD_SIZES:
+        raise ValueError(f"head size {hs} not in {HEAD_SIZES}")
+    nc = n_chunks(S)
+    if tuple(states.shape) != (B, nh, nc, hs, hs) \
+            or states.dtype != torch.float32:
+        raise ValueError(f"states must be ({B},{nh},{nc},{hs},{hs}) float32")
+    if any(t.stride(-1) != 1 for t in (r, k, v, lw, dy)):
+        raise ValueError("r, k, v, lw and dy need a unit last stride")
+    u, states, ds_out = (t.contiguous() for t in (u, states, ds_out))
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty((B, S, nh, hs), dtype=r.dtype,
+                              device=r.device) for _ in range(3))
+    dlw = torch.empty((B, S, nh, hs), **f32)
+    du = torch.empty((nh, hs), **f32)
+    ds0 = torch.empty((B, nh, hs, hs), **f32)
+    # each chunk's G, then its dS_out; each chunk's decay and du partial
+    gbuf = torch.empty((B, nh, nc, hs, hs), **f32)
+    decay = torch.empty((B, nh, nc, hs), **f32)
+    du_part = torch.empty((B, nh, nc, hs), **f32)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = _lib_bwd()(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+        u.data_ptr(), states.data_ptr(), dy.data_ptr(), ds_out.data_ptr(),
+        dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlw.data_ptr(),
+        du.data_ptr(), ds0.data_ptr(), gbuf.data_ptr(), decay.data_ptr(),
+        du_part.data_ptr(), DTYPES[r.dtype], B, nh, S, hs,
+        *r.stride()[:3], *k.stride()[:3], *v.stride()[:3], *lw.stride()[:3],
+        *dy.stride()[:3], stream)
+    _build.check(err, BWD_NAME)
+    with _count_lock:
+        BWD_LAUNCHES += 1
+    return dr, dk, dv, dlw, du, ds0
+
+
+class WKV6Fn(torch.autograd.Function):
+    """``wkv6`` under autograd: (r, k, v, lw, u, s0) -> (y, s_out), both
+    fresh tensors. The forward keeps its inputs and each chunk's incoming
+    state; the backward is ``wkv6_bwd``. On CPU tensors both run the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0):
+        y, s_out, states = _forward(r, k, v, lw, u, s0)
+        ctx.save_for_backward(r, k, v, lw, u, s0, states)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, ds_out):
+        r, k, v, lw, u, s0, states = ctx.saved_tensors
+        return wkv6_bwd(r, k, v, lw, u, s0, states, dy.float().contiguous(),
+                        ds_out.float())
+

@@ -11,6 +11,8 @@ step: chunks of ``chunk`` steps cut into sub-chunks of ``sub`` rows, every
 exponent kept <= 0 (no clamp on lw), and, with ``tf32x3``, every matrix
 product rounded as the kernel's 3xTF32 tensor-core products round their
 operands. It is what the CPU tests hold against the JAX model.
+``wkv6_chunked_bwd_ref`` is its reverse, the algorithm of the backward
+kernel (``csrc/rwkv6_scan_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,52 @@ def tf32x3_matmul(a, b, tf32x3):
     return al @ bh + ah @ bl + ah @ bh
 
 
+def _chunked(xs, lw, C):
+    """The tensors ``xs`` and lw (B,S,nh,hs) in chunks of C steps, padded
+    with zeros past S: ([x (B,nh,nc,C,hs) fp32], cum, cum_prev, cum_last),
+    with cum the inclusive and cum_prev the exclusive cumulative sum of lw
+    in each chunk and cum_last its last row (B,nh,nc,1,hs)."""
+    B, S, nh, hs = lw.shape
+    pad = (-S) % C
+    nc = (S + pad) // C
+
+    def chunks(t):                           # -> (B, nh, nc, C, hs) fp32
+        t = t.float().movedim(2, 1)
+        if pad:
+            t = torch.nn.functional.pad(t, (0, 0, 0, pad))
+        return t.reshape(B, nh, nc, C, hs)
+
+    lwc = chunks(lw)
+    cum = torch.cumsum(lwc, dim=3)                          # inclusive
+    cum_prev = torch.cat([torch.zeros_like(cum[..., :1, :]),
+                          cum[..., :-1, :]], dim=3)         # exclusive
+    return [chunks(x) for x in xs], cum, cum_prev, cum[..., -1:, :]
+
+
+def _unchunk(t, S):
+    """(B,nh,nc,C,hs) -> (B,S,nh,hs), the padding dropped."""
+    B, nh, nc, C, hs = t.shape
+    return t.reshape(B, nh, nc * C, hs)[:, :, :S].movedim(1, 2).contiguous()
+
+
+def _state_walk(kc, vc, cum, cum_last, s0, tf32x3):
+    """Each chunk's state increment (k e^{cum_last - cum})^T v and decay
+    e^{cum_last}, then the walk over the chunks from s0: (S_in
+    (B,nh,nc,hs,hs), the final state, decay (B,nh,nc,hs))."""
+    B, nh, nc, _, hs = kc.shape
+    k_dec = kc * torch.exp(cum_last - cum)
+    dstate = tf32x3_matmul(k_dec.transpose(-1, -2), vc,
+                           tf32x3)                          # (.., hs, hs)
+    decay = torch.exp(cum_last[..., 0, :])                  # (.., hs)
+    s = (torch.zeros((B, nh, hs, hs), dtype=torch.float32, device=kc.device)
+         if s0 is None else s0.float())
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, :, c, :, None] * s + dstate[:, :, c]
+    return torch.stack(s_in, dim=2), s, decay
+
+
 def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
                      tf32x3=False):
     """The chunked route's algorithm; same contract as ``wkv6_ref``.
@@ -72,35 +120,10 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
     B, S, nh, hs = r.shape
     C = chunk
     assert C % sub == 0
-    pad = (-S) % C
-    nc = (S + pad) // C
-
-    def chunks(t):                           # -> (B, nh, nc, C, hs) fp32
-        t = t.float().movedim(2, 1)
-        if pad:
-            t = torch.nn.functional.pad(t, (0, 0, 0, pad))
-        return t.reshape(B, nh, nc, C, hs)
-
-    rc, kc, vc, lwc = map(chunks, (r, k, v, lw))
-    cum = torch.cumsum(lwc, dim=3)                          # inclusive
-    cum_prev = torch.cat([torch.zeros_like(cum[..., :1, :]),
-                          cum[..., :-1, :]], dim=3)         # exclusive
-    cum_last = cum[..., -1:, :]
-
-    # (a) each chunk's state increment and decay
-    k_dec = kc * torch.exp(cum_last - cum)
-    dstate = tf32x3_matmul(k_dec.transpose(-1, -2), vc,
-                           tf32x3)                          # (.., hs, hs)
-    decay = torch.exp(cum_last[..., 0, :])                  # (.., hs)
-
-    # (b) the walk over chunks
-    s = (torch.zeros((B, nh, hs, hs), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
-    s_in = []
-    for c in range(nc):
-        s_in.append(s)
-        s = decay[:, :, c, :, None] * s + dstate[:, :, c]
-    s_in = torch.stack(s_in, dim=2)                         # (B,nh,nc,hs,hs)
+    (rc, kc, vc), cum, cum_prev, cum_last = _chunked((r, k, v), lw, C)
+    nc = rc.shape[2]
+    # (a) and (b): each chunk's incoming state
+    s_in, s, _ = _state_walk(kc, vc, cum, cum_last, s0, tf32x3)
 
     # (c) the outputs
     a = torch.zeros((B, nh, nc, C, C), dtype=torch.float32, device=r.device)
@@ -124,5 +147,96 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
                 r_loc, k_loc.transpose(-1, -2), tf32x3)
     r_dec = rc * torch.exp(cum_prev)
     y = tf32x3_matmul(r_dec, s_in, tf32x3) + tf32x3_matmul(a, vc, tf32x3)
-    y = y.reshape(B, nh, nc * C, hs)[:, :, :S].movedim(1, 2)
-    return y.contiguous(), s
+    return _unchunk(y, S), s
+
+
+def wkv6_chunked_bwd_ref(r, k, v, lw, u, s0, dy, ds_out, *, chunk=32,
+                         tf32x3=False):
+    """Gradients of ``wkv6_chunked_ref`` at (r, k, v, lw, u, s0), given
+    the gradients ``dy`` (B,S,nh,hs) of y and ``ds_out`` (B,nh,hs,hs) of
+    the final state. The algorithm of
+    ``csrc/rwkv6_scan_bwd.cu``, per chunk of ``chunk`` steps (padded with
+    zeros past S), with cum, cum_prev and cum_last as in the forward:
+
+    - S_in of each chunk, recomputed by the forward's walk;
+    - the chunks walked backwards for the adjoint of each chunk's outgoing
+      state: dS_in,c = e^{cum_last,c} (rows) dS_out,c + (r e^{cum_prev})^T
+      dy_c, dS_out,c-1 = dS_in,c, and ds0 = dS_in,0;
+    - per chunk, with E[t, s] = e^{cum_prev_t - cum_s} (every exponent
+      <= 0) for s < t, the intra-chunk A[t, s] = sum_i r_t k_s E[t, s],
+      dA[t, s] = dy_t . v_s and the bonus terms at s = t:
+        dr_t = e^{cum_prev_t} (S_in dy_t) + sum_{s<t} dA[t,s] k_s E[t,s]
+               + dA[t,t] u k_t,
+        dk_s = sum_{t>s} dA[t,s] r_t E[t,s] + e^{cum_last - cum_s}
+               (dS_out v_s) + dA[s,s] u r_s,
+        dv_s = sum_{t>s} A[t,s] dy_t + (r_s . u k_s) dy_s
+               + (k_s e^{cum_last - cum_s}) dS_out,
+        du = sum_{b,t} dA[t,t] r_t k_t;
+    - dlw from the gradients of the cumulative sums: with dr' and dk'
+      those of r and k without the bonus, X_t = r_t dr'_t (of cum_prev_t),
+      Y_t the intra-chunk part of k_t dk'_t (of cum_t, negated) and Z_t
+      its state part,
+        dlw_tau = sum_{t>tau} X_t - sum_{t>=tau} Y_t + sum_{t<tau} Z_t
+                  + sum_j e^{cum_last} S_in dS_out,
+      the state terms through dcum_last and -dcum_s already netted, so
+      only the intra-chunk pairs cancel (X and Y both hold a pair (t, s)
+      whose exponent has no step between them at full size).
+
+    With ``tf32x3`` every matrix product is rounded as the forward's
+    tensor-core products round theirs (``tf32x3_matmul``); the sums over
+    the E-weighted pairs stay in fp32. Returns (dr, dk, dv in r's dtype,
+    dlw, du, ds0 fp32).
+    """
+    S, C = r.shape[1], chunk
+    (rc, kc, vc, dyc), cum, cum_prev, cum_last = _chunked((r, k, v, dy),
+                                                          lw, C)
+    nc = rc.shape[2]
+    s_in, _, decay = _state_walk(kc, vc, cum, cum_last, s0, tf32x3)
+
+    def mm(a, b):
+        return tf32x3_matmul(a, b, tf32x3)
+
+    # the reverse walk: dS_out of each chunk, and ds0
+    e_prev = torch.exp(cum_prev)
+    g = mm((rc * e_prev).transpose(-1, -2), dyc)            # (.., hs, hs)
+    d = ds_out.float()
+    d_out = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        d_out[c] = d
+        d = decay[:, :, c, :, None] * d + g[:, :, c]
+    d_out = torch.stack(d_out, dim=2)                       # (B,nh,nc,hs,hs)
+
+    # the intra-chunk pairs s < t, exactly
+    lower = torch.tril(torch.ones((C, C), dtype=torch.bool,
+                                  device=r.device), diagonal=-1)
+    expo = cum_prev[..., :, None, :] - cum[..., None, :, :]
+    e = torch.exp(torch.clamp(expo, max=0.0)) * lower[:, :, None]
+    a = (rc[..., :, None, :] * kc[..., None, :, :] * e).sum(-1)
+    da = mm(dyc, vc.transpose(-1, -2))                      # dy_t . v_s
+    dbonus = torch.diagonal(da, dim1=-2, dim2=-1)[..., None]
+    uf = u.float()[None, :, None, None, :]
+    bonus = (rc * uf * kc).sum(-1, keepdim=True)
+    dal = (da * lower)[..., None]
+    dr_in = (dal * e * kc[..., None, :, :]).sum(-2)
+    dk_in = (dal * e * rc[..., :, None, :]).sum(-3)
+    dr_inter = e_prev * mm(dyc, s_in.transpose(-1, -2))
+    k_exp = torch.exp(cum_last - cum)
+    dk_state = k_exp * mm(vc, d_out.transpose(-1, -2))
+    dv = (mm(a.transpose(-1, -2), dyc) + bonus * dyc
+          + mm(kc * k_exp, d_out))
+    dr = dr_inter + dr_in + dbonus * uf * kc
+    dk = dk_in + dk_state + dbonus * uf * rc
+    du = (dbonus * rc * kc).sum((0, 2, 3))
+
+    # dlw: reverse cumulative sums of the cumulative sums' gradients
+    x = rc * (dr_inter + dr_in)
+    y = kc * dk_in
+    z = kc * dk_state
+    zl = (decay[..., None] * s_in * d_out).sum(-1)[..., None, :]
+    def rev(t):                              # sum over t' >= t
+        return torch.flip(torch.cumsum(torch.flip(t, [3]), 3), [3])
+
+    dlw = (rev(x) - x) - rev(y) + (torch.cumsum(z, 3) - z) + zl
+    return (_unchunk(dr, S).to(r.dtype), _unchunk(dk, S).to(k.dtype),
+            _unchunk(dv, S).to(v.dtype), _unchunk(dlw, S), du.to(u.dtype),
+            d)

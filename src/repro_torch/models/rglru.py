@@ -8,7 +8,9 @@ The two block-diagonal gate products are PyTorch einsums; the elementwise
 tail of the gates and the scan over the sequence go through K3's gated
 route ``kernels.rglru_scan.ops.rglru_gated_scan`` (one kernel on a CUDA
 tensor, a and b never in memory; ``_gates`` followed by the sequential
-scan on a CPU tensor), for the prefill and the decode step alike. A state
+scan on a CPU tensor), for the prefill and the decode step alike; on a
+CUDA tensor that autograd records, through ``RGLRUGatedScanFn`` (the same
+kernel, then K3's backward kernel). A state
 passed in is updated in place (``h`` by the scan itself, ``conv`` by a
 copy) and returned; the JAX functions return a new state instead.
 """
@@ -81,11 +83,19 @@ def rglru_scan(params, cfg, xb, h0=None, *, h_last=None):
     Returns (h (B,S,w) fp32, h_last (B,w) fp32).
     """
     ga, gx = _gate_products(params, cfg, xb)
+    lam = params["log_lambda"]
     if h0 is None:
         h0 = torch.zeros((xb.shape[0], xb.shape[2]), dtype=torch.float32,
                          device=xb.device)
-    return rglru_ops.rglru_gated_scan(ga, gx, xb, params["log_lambda"], h0,
-                                      h_last=h_last)
+    if xb.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (ga, gx, xb, lam, h0)):
+        # a train step: K3's forward, then its backward kernel; it passes
+        # no state to update in place
+        if h_last is not None:
+            raise ValueError("under autograd the scan updates no state in "
+                             "place")
+        return rglru_ops.RGLRUGatedScanFn.apply(ga, gx, xb, lam, h0)
+    return rglru_ops.rglru_gated_scan(ga, gx, xb, lam, h0, h_last=h_last)
 
 
 def causal_conv1d(params, x, tail=None):

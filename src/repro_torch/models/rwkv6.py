@@ -9,7 +9,9 @@ Core recurrence per head (state S in R^{hs x hs}, data-dependent decay w_t):
 On a CUDA tensor ``time_mix`` runs K4 (``kernels.rwkv6_scan``): its
 chunked tensor-core kernels for a prefill, the form of ``wkv_chunked``
 below, and its recurrence for a decode step, from the slot's state and
-with the log-decay as the model computes it (no clamp). On a CPU tensor
+with the log-decay as the model computes it (no clamp); under autograd
+through ``WKV6Fn`` (the same kernels, then K4's backward kernels). On a
+CPU tensor
 it runs the ports of the JAX model's two forms, ``wkv_chunked`` (prefill)
 and ``wkv_scan`` (decode). A state passed in is updated in place and
 returned; the JAX functions return a new state.
@@ -158,7 +160,16 @@ def time_mix(params, cfg, x, state=None):
         start = s0 if s0 is not None else torch.zeros(
             (B, d // cfg.rwkv_head_size) + (cfg.rwkv_head_size,) * 2,
             dtype=torch.float32, device=x.device)
-        y, s_out = wkv_ops.wkv6(r, k, v, lw, u, start, s_out=s0)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (r, k, v, lw, u, start)):
+            # a train step: K4's forward, then its backward kernels; it
+            # passes no state to update in place
+            if s0 is not None:
+                raise ValueError("under autograd WKV-6 updates no state "
+                                 "in place")
+            y, s_out = wkv_ops.WKV6Fn.apply(r, k, v, lw, u, start)
+        else:
+            y, s_out = wkv_ops.wkv6(r, k, v, lw, u, start, s_out=s0)
     elif S > 1:
         y, s_out = wkv_chunked(r, k, v, lw, u, s0)
     else:

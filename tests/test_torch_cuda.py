@@ -11,7 +11,10 @@ recurrent decode step); K4 in bf16 2e-2; K3's gated route 1e-5 of the
 largest |h| (its scan rounds a chunk's carry relative to the state);
 fp32 model logits 1e-3; K6 (the int8 matmul, f32 scalar and bf16
 tensor-core routes, split-K at decode) 10x those, as
-tests/test_kernels.py:117. K5 (the
+tests/test_kernels.py:117. The backward kernels of K1, K3's gated
+route and K4 within 1e-4 of each gradient's largest |reference| in f32
+(K4's dlw 1e-3: its intra-chunk pairs cancel) and 2e-2 in bf16, and
+bit-equal on a repeat. K5 (the
 planner's masked argmax and its round kernel, with and without a latency
 mask) and the torch planner backend, the sharded planner on it included,
 are exact. The last tests run the live testbed's smoke spec on the card,
@@ -971,18 +974,28 @@ def test_flash_attention_bwd_sweep_covers_both_sides_of_the_split(cuda):
         assert plan.split == split, (B, Sq, H, KVH, hd, plan)
 
 
+# the archs whose SMOKE train step test_model_backward_on_card_reaches_
+# every_leaf drives: attention only (K1), RG-LRU + local attention (K1,
+# K3's gated route), RWKV-6 (K4)
+BACKWARD_ARCHS = ("qwen2.5-3b", "recurrentgemma-2b", "rwkv6-3b")
+
+
 @pytest.mark.cuda
-def test_model_backward_on_card_reaches_every_leaf(cuda):
-    """The fault this guards: on the card the attention kernels were
-    ctypes launches autograd never saw, so ``loss.backward()`` left
-    wq/wk/wv/bq/bk/bv and every leaf before the first attention without
-    a gradient. Through ``FlashAttentionFn`` every leaf of a qwen2.5-3b
-    SMOKE tree gets one, within 1e-4 x max(1, max|g|) of the CPU's, and
-    K1's forward and backward each launch once a layer."""
+@pytest.mark.parametrize("arch", BACKWARD_ARCHS)
+def test_model_backward_on_card_reaches_every_leaf(cuda, arch):
+    """The fault this guards: on the card the kernels were ctypes launches
+    autograd never saw, so ``loss.backward()`` left wq/wk/wv/bq/bk/bv and
+    every leaf before the first attention without a gradient (and
+    recurrentgemma-2b's and rwkv6-3b's train steps raised). Through
+    ``FlashAttentionFn``, ``RGLRUGatedScanFn`` and ``WKV6Fn`` every leaf
+    of the SMOKE tree gets one, within 1e-4 x max(1, max|g|) of the
+    CPU's, and each layer's kernel launches its forward and its backward
+    once."""
     from repro_torch.launch.steps import batch_to
     from repro_torch.models.lm import lm_loss
     from repro_torch.training.tree import tree_leaves
-    cfg = configs.get_smoke("qwen2.5-3b")
+    cfg = configs.get_smoke(arch)
+    kinds = cfg.layer_kinds()
     cpu = torch.device("cpu")
     rng = np.random.default_rng(2)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 24))
@@ -990,14 +1003,18 @@ def test_model_backward_on_card_reaches_every_leaf(cuda):
              "labels": rng.integers(0, cfg.vocab_size, (2, 24))
              .astype(np.int32)}
     grads = {}
-    fa_ops.LAUNCHES = fa_ops.BWD_LAUNCHES = 0
+    for m in (fa_ops, rglru_ops, wkv_ops):
+        m.LAUNCHES = m.BWD_LAUNCHES = 0
     for dev in (cuda, cpu):
         params = MDL.init_params(generator_for(cpu, 0), cfg, device=cpu)
         params = MDL._tree_map(lambda t: t.to(dev).requires_grad_(), params)
         loss, _ = lm_loss(params, cfg, batch_to(batch, dev))
         loss.backward()
         grads[dev.type] = [p.grad for p in tree_leaves(params)]
-    assert fa_ops.LAUNCHES == fa_ops.BWD_LAUNCHES == cfg.num_layers
+    n_attn = sum(kind in MDL.ATTN_KINDS for kind in kinds)
+    assert fa_ops.LAUNCHES == fa_ops.BWD_LAUNCHES == n_attn
+    assert rglru_ops.LAUNCHES == rglru_ops.BWD_LAUNCHES == kinds.count("rglru")
+    assert wkv_ops.LAUNCHES == wkv_ops.BWD_LAUNCHES == kinds.count("rwkv")
     for a, b in zip(grads["cuda"], grads["cpu"]):
         assert a is not None and bool(torch.any(a != 0))
         assert _max_err(a.cpu(), b) < 1e-4 * max(1.0, float(b.abs().max()))
@@ -1005,14 +1022,12 @@ def test_model_backward_on_card_reaches_every_leaf(cuda):
 
 @pytest.mark.cuda
 def test_kernels_without_a_backward_refuse_grad_on_cuda(cuda):
-    """K2-K6 raise a RuntimeError naming the missing backward kernel when
-    autograd would record a launch, instead of dropping the gradient; a
-    train step of recurrentgemma-2b (K3) or rwkv6-3b (K4) raises on the
-    card."""
+    """K2, K3's (a, b) route, K5 and K6 raise a RuntimeError naming the
+    missing backward kernel when autograd would record a launch, instead
+    of dropping the gradient. (K3's gated route and K4 have backward
+    kernels: test_recurrent_backward_kernels_differentiate_on_cuda.)"""
     from repro_torch.kernels.int8_matmul import ops as k6
     from repro_torch.kernels.planner_argmax import ops as k5
-    from repro_torch.launch.steps import make_train_step
-    from repro_torch.training.optimizer import AdamW
     f = torch.float32
 
     def rnd(*shape):
@@ -1025,13 +1040,6 @@ def test_kernels_without_a_backward_refuse_grad_on_cuda(cuda):
                                                rnd(2, 8, 2, 16), lens),
         "K3": lambda: rglru_ops.rglru_scan(rnd(1, 4, 8), rnd(1, 4, 8),
                                            torch.zeros(1, 8, device=cuda)),
-        "K3 (RG-LRU scan, gated": lambda: rglru_ops.rglru_gated_scan(
-            rnd(1, 4, 8), rnd(1, 4, 8), rnd(1, 4, 8),
-            torch.zeros(8, device=cuda), torch.zeros(1, 8, device=cuda)),
-        "K4": lambda: wkv_ops.wkv6(
-            rnd(1, 4, 2, 8), rnd(1, 4, 2, 8), rnd(1, 4, 2, 8),
-            -torch.rand(1, 4, 2, 8, device=cuda), rnd(2, 8),
-            torch.zeros(1, 2, 8, 8, device=cuda)),
         "K5 (masked argmax)": lambda: k5.masked_argmax(
             rnd(6), torch.ones(6, dtype=torch.bool, device=cuda)),
         "K6": lambda: k6.int8_matmul(
@@ -1044,13 +1052,114 @@ def test_kernels_without_a_backward_refuse_grad_on_cuda(cuda):
         assert name in str(e.value) and "ROADMAP Queue 2" in str(e.value)
         with torch.no_grad():
             call()                       # no grad recorded: it launches
-    for arch, item in (("recurrentgemma-2b", "K3 backward"),
-                       ("rwkv6-3b", "K4 backward")):
-        cfg = configs.get_smoke(arch)
-        params = MDL.init_params(generator_for(cuda, 0), cfg, device=cuda)
-        opt = AdamW()
-        batch = {"tokens": np.zeros((2, 8), np.int32),
-                 "labels": np.zeros((2, 8), np.int32)}
-        with pytest.raises(RuntimeError, match=item):
-            make_train_step(cfg, opt)(params, opt.init(params), batch)
+    torch.cuda.synchronize()
+
+
+# K3's gated backward: (B, S, W, extreme gates) at the smoke width, a
+# ragged width, S = 1, S no multiple of the 32 chunks and longer than 8 of
+# them, recurrentgemma-2b's width; ``extreme`` pushes some gates to
+# a -> 1, where mult reaches the clamp
+RGLRU_BWD_SWEEP = [(2, 24, 64, False), (3, 17, 100, False),
+                   (2, 1, 64, False), (1, 33, 2560, False),
+                   (2, 300, 256, False), (1, 2100, 512, False),
+                   (2, 64, 256, True)]
+# K4's backward: (B, NH, S, hs): every head size, S = 1, a partial chunk,
+# rwkv6-3b's heads
+WKV_BWD_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8),
+                 (1, 2, 1, 64), (1, 40, 100, 64)]
+
+
+def _close(got, ref, rtol):
+    """Each gradient within ``rtol`` of its largest |reference|."""
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert _max_err(a, b) <= rtol * max(float(b.abs().max().float()),
+                                            1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_gated_bwd_matches_plain_on_cuda(cuda, dtype):
+    """K3's gated backward kernel against ``rglru_gated_scan_bwd_ref`` on
+    the same inputs and forward output h, nonzero dh and dh_last, two runs
+    bit-equal (no atomics); one launch counted a call."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_gated_scan_bwd_ref
+    r = np.random.default_rng(23)
+    rglru_ops.BWD_LAUNCHES = 0
+    for B, S, W, extreme in RGLRU_BWD_SWEEP:
+        ga, gx, xb, lam, h0 = _gated_case(r, B, S, W, TDT[dtype], cuda)
+        if extreme:
+            ga = (ga.float() * 4 - 10).to(ga.dtype)
+        h, _ = rglru_ops.rglru_gated_scan(ga, gx, xb, lam, h0)
+        dh = torch.randn(B, S, W, device=cuda)
+        dh_last = torch.randn(B, W, device=cuda)
+        args = (ga, gx, xb, lam, h0, h, dh, dh_last)
+        got = rglru_ops.rglru_gated_scan_bwd(*args)
+        again = rglru_ops.rglru_gated_scan_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        _close(got, rglru_gated_scan_bwd_ref(*args), BWD_RTOL[dtype])
+    assert rglru_ops.BWD_LAUNCHES == 2 * len(RGLRU_BWD_SWEEP)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_bwd_matches_plain_on_cuda(cuda, dtype):
+    """K4's backward kernels against ``wkv6_chunked_bwd_ref`` on the same
+    inputs, from the states the forward kept (either route), lw spread to
+    -3 and down to -20, a carried s0 and nonzero dy and ds_out; two runs
+    bit-equal (no atomics). dlw within 1e-3 of its largest |reference| in
+    f32 (the pairs' terms cancel in it)."""
+    from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked_bwd_ref
+    dt = TDT[dtype]
+    r = np.random.default_rng(24)
+    for (B, NH, S, hs), lw_min in [(c, m) for c in WKV_BWD_SWEEP
+                                   for m in (-3.0, -20.0)]:
+        *rkv, lw, u, s0 = _wkv_case(r, B, NH, S, hs, lw_min, dt, cuda)
+        y, _, states = wkv_ops._forward(*rkv, lw, u, s0)
+        dy = torch.randn_like(y)
+        ds_out = torch.randn_like(s0)
+        wkv_ops.BWD_LAUNCHES = 0
+        got = wkv_ops.wkv6_bwd(*rkv, lw, u, s0, states, dy, ds_out)
+        again = wkv_ops.wkv6_bwd(*rkv, lw, u, s0, states, dy, ds_out)
+        assert wkv_ops.BWD_LAUNCHES == 2
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = wkv6_chunked_bwd_ref(*rkv, lw, u, s0, dy, ds_out)
+        rtol = BWD_RTOL[dtype]
+        _close(got[:3] + got[4:], ref[:3] + ref[4:], rtol)
+        _close(got[3:4], ref[3:4], max(rtol, 1e-3))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_recurrent_backward_kernels_differentiate_on_cuda(cuda):
+    """``RGLRUGatedScanFn`` and ``WKV6Fn`` on the card (the forward
+    kernels, then the backward kernels) against autograd through the
+    plain forwards on the card, for every input that has a gradient, and
+    the launches counted once each way."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_gated_scan_ref
+    r = np.random.default_rng(25)
+    ga, gx, xb, lam, h0 = (t.requires_grad_() for t in _gated_case(
+        r, 2, 40, 64, torch.float32, cuda))
+    dh = torch.randn(2, 40, 64, device=cuda)
+    rglru_ops.GATED_LAUNCHES = rglru_ops.BWD_LAUNCHES = 0
+    leaves = (ga, gx, xb, lam, h0)
+    h, h_last = rglru_ops.RGLRUGatedScanFn.apply(*leaves)
+    got = torch.autograd.grad((h * dh).sum() + h_last.sum(), leaves)
+    assert rglru_ops.GATED_LAUNCHES == rglru_ops.BWD_LAUNCHES == 1
+    h, h_last = rglru_gated_scan_ref(*leaves)
+    _close(got, torch.autograd.grad((h * dh).sum() + h_last.sum(), leaves),
+           1e-4)
+    for S in (1, 45):
+        leaves = [t.requires_grad_() for t in _wkv_case(
+            r, 2, 3, S, 16, -20.0, torch.float32, cuda)]
+        wkv_ops.LAUNCHES = wkv_ops.BWD_LAUNCHES = 0
+        y, s = wkv_ops.WKV6Fn.apply(*leaves)
+        dy, ds = torch.randn_like(y), torch.randn_like(s)
+        got = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+        assert wkv_ops.LAUNCHES == wkv_ops.BWD_LAUNCHES == 1
+        y, s = wkv6_ref(*leaves)
+        ref = torch.autograd.grad((y * dy).sum() + (s * ds).sum(), leaves)
+        _close(got[:3] + got[4:], ref[:3] + ref[4:], 1e-4)
+        _close(got[3:4], ref[3:4], 1e-3)
     torch.cuda.synchronize()
