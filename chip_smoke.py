@@ -14,7 +14,8 @@ and prints no result):
    or K6's tensor-core kernels, and HMMA
    instructions in every bf16 instantiation of K1, every dK/dV and dQ
    instantiation of K1's backward (bf16, and f32 as 3xTF32), K4's
-   chunked kernels and K6;
+   chunked kernels, K4's backward kernels (G and the per-chunk
+   gradients, 3xTF32) and K6;
 2. kernels: each against its plain PyTorch version on the card —
    K1 (prefill flash attention) and K2 (decode attention) on the sweeps of
    tests/test_kernels.py (f32 2e-5, bf16 2e-2), K3 (RG-LRU scan, f32 1e-5)
@@ -203,8 +204,13 @@ and prints no result):
    S=256, S=2100) and K4's (rwkv6-3b's 40 heads of 64, B=1 and 2 at
    S=256, S=33, lw to -20) in f32 and bf16 against their plain backwards
    and against autograd through their plain forwards on the card (the
-   same tolerances; K4's dlw 1e-3), two runs bit-equal, each timed
-   beside its plain version and the bound (fp32 operations or bytes);
+   same tolerances; K4's dlw 1e-3; K4's plain backward is its kernel's
+   algorithm, ``sub=16`` with 3xTF32 rounding), two runs bit-equal, each
+   timed beside its plain version, the earlier design's time and the
+   bound (K3 at the fp32 rate, K4 at the 3xTF32 rate, or bytes); then
+   K3's backward at its rows under ``plan_chunks``'s plan and its
+   neighbours, timed, the gradients within the same tolerance of the
+   planned ones;
    (b) two ``make_train_step`` steps on SMOKE params of all ten archs,
    card against CPU (losses within 1e-5 relative, the gradients within
    1e-4 x max(1, max|g|), params moved, the forward and backward kernels
@@ -262,6 +268,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
+# the rate each peak is, as the JSON rows name it
+PEAK_NAMES = {PEAK_BF16_FLOPS: "bf16 tensor core",
+              PEAK_TF32X3_FLOPS: "tf32x3 tensor core",
+              PEAK_FP32_FLOPS: "fp32 non-tensor"}
 ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SCAN_ATOL = 1e-5           # K3, tests/test_kernels.py:77-78
 # K3's gated route: 1e-5 of the largest |h| (at least 1). Its gates are
@@ -652,9 +662,7 @@ def timed_row(shape, e, kern, plain, lib, n_bytes, flops, peak,
                 eager_ms=eager_ms(kern),
                 plain_ms=graph_ms(plain, reps=plain_reps),
                 library_ms=None if lib is None else graph_ms(lib),
-                bound_ms=b_ms, bound_by=b_by,
-                peak=("bf16 tensor core" if peak == PEAK_BF16_FLOPS
-                      else "fp32 non-tensor"))
+                bound_ms=b_ms, bound_by=b_by, peak=PEAK_NAMES[peak])
 
 
 # ---------------------------------------------------------------------------
@@ -1028,11 +1036,15 @@ def phase_kernels():
         kern = functools.partial(wkv_ops.wkv6, r, k, v, lw, u, state,
                                  s_out=state)
         route = "rwkv6_chunked" if wkv_ops.chunked_route(S) else "rwkv6_scan"
+        # the chunked route's products run 3xTF32 on the tensor cores, the
+        # recurrence in scalar fp32
+        peak = (PEAK_TF32X3_FLOPS if route == "rwkv6_chunked"
+                else PEAK_FP32_FLOPS)
         rows[route][tag] = row = timed_row(
             f"r/k/v ({B},{S},{NH},{hs}) bf16, lw f32, state "
             f"({B},{NH},{hs},{hs}) f32", e, kern,
             lambda: wkv6_ref(r, k, v, lw, u, s0), None,
-            nbytes(r, k, v, lw, u, s0, y, state), flops, PEAK_FP32_FLOPS,
+            nbytes(r, k, v, lw, u, s0, y, state), flops, peak,
             plain_reps=2)
         if route == "rwkv6_chunked":
             row["cold_ms"] = cold_ms(kern)
@@ -2802,6 +2814,26 @@ REC_BWD_LW_MIN = -20.0
 # pairs cancel (tests/test_torch_recbwd.py measures the plain backward
 # against jax.vjp)
 DLW_RTOL = 1e-3
+# the rows' backward device ms before this design (the scalar K4 and the
+# two-pass K3; PERF.md §6's "before ms", on an H100 80GB HBM3 at 700 W)
+REC_BWD_BEFORE_MS = {
+    "recurrentgemma-2b full B=1 S=256 float32": 0.01914,
+    "recurrentgemma-2b full B=1 S=256 bfloat16": 0.02043,
+    "recurrentgemma-2b full B=2 S=256 float32": 0.03739,
+    "recurrentgemma-2b full B=2 S=256 bfloat16": 0.03060,
+    "recurrentgemma-2b full B=1 S=2100 float32": 0.14931,
+    "recurrentgemma-2b full B=1 S=2100 bfloat16": 0.17422,
+    "rwkv6-3b full B=1 S=256 float32": 0.16623,
+    "rwkv6-3b full B=1 S=256 bfloat16": 0.16171,
+    "rwkv6-3b full B=2 S=256 float32": 0.28850,
+    "rwkv6-3b full B=2 S=256 bfloat16": 0.28484,
+    "rwkv6-3b full B=1 S=33 float32": 0.06132,
+    "rwkv6-3b full B=1 S=33 bfloat16": 0.06130,
+}
+# the rate each recurrent backward's operations run at: K3's in scalar
+# fp32, K4's products as 3xTF32 on the tensor cores
+REC_BWD_PEAK = {"rglru_gated_bwd": PEAK_FP32_FLOPS,
+                "wkv6_bwd": PEAK_TF32X3_FLOPS}
 # operations a (row, step, channel) of K3's gated backward: the gates
 # recomputed (two sigmoids, two exps, a sqrt: ~15), the adjoint and the
 # chain through the gates (~20)
@@ -3100,6 +3132,54 @@ def phase_bwd_plans():
     return rows
 
 
+def phase_rglru_bwd_plans():
+    """Phase 8 (a), K3's backward plan: at each K3 row of REC_BWD_ROWS,
+    the kernel under ``plan_chunks``'s plan and under its neighbours
+    (half and twice the chunks, in blocks of 8 or 16 warps), each timed
+    by CUDA-graph replay and its gradients held to the planned ones
+    within BWD_RTOL of max|g|. Logs the plans by time; returns ``{tag:
+    {plan: ms}}``."""
+    from repro_torch.kernels._build import sm_count
+    from repro_torch.kernels.rglru_scan import ops as rg
+
+    n_sm = sm_count(0)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    rows = {}
+    for (tag, dims), dtn in itertools.product(
+            REC_BWD_ROWS["rglru_gated_bwd"], dts):
+        ins, douts = rec_bwd_case("rglru_gated_bwd", dims, dts[dtn], g)
+        h, _ = rg.rglru_gated_scan(*ins)
+        B, S, W = dims
+        chosen = rg.plan_chunks(B, S, W, rg.bwd_vec(W), n_sm)
+        slots = chosen[0] * chosen[1]
+        plans = [chosen] + [
+            (n // nw, nw, -(-S // n)) for n in (slots // 2, slots, 2 * slots)
+            for nw in (8, 16)
+            if nw <= n and n // nw <= rg.MAX_CLUSTER and n <= 128
+            and (n // nw, nw) != chosen[:2]]
+        want = rg._bwd_launch(*ins, h, *douts, chosen)
+        ms = {}
+        for plan in plans:
+            call = functools.partial(rg._bwd_launch, *ins, h, *douts, plan)
+            got = call()
+            rel = max(err(a, b) / max(float(b.abs().max().float()), 1e-30)
+                      for a, b in zip(got, want))
+            if not rel < BWD_RTOL[dtn]:
+                raise AssertionError(f"K3 backward plan {plan} at {tag} "
+                                     f"{dtn}: {rel}")
+            ms[str(plan)] = graph_ms(call, reps=5, n=10)
+        rows[f"{tag} {dtn}"] = ms
+        log(f"  rglru_gated_bwd plans (cl, nw, L), {tag} {dtn}: "
+            + ", ".join(f"{p} {t:.5f} ms" for p, t in
+                        sorted(ms.items(), key=lambda x: x[1]))
+            + f"; plan_chunks on {n_sm} SMs picks {chosen}")
+        del ins, douts, h, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def rec_bwd_case(name, dims, dt, g):
     """A phase 8 (a) row's inputs on the card, drawn from ``g``: K3's
     (ga, gx, xb, log_lambda as the model draws it, h0) or K4's (r, k, v,
@@ -3126,12 +3206,15 @@ def rec_bwd_case(name, dims, dt, g):
 def phase_train_rec_kernels():
     """Phase 8 (a), the recurrent backward kernels: K3's gated backward
     against ``rglru_gated_scan_bwd_ref`` and K4's against
-    ``wkv6_chunked_bwd_ref`` on the same inputs (the forward's h, or the
+    ``wkv6_chunked_bwd_ref(..., sub=16, tf32x3=True)`` (the kernel's
+    algorithm and rounding) on the same inputs (the forward's h, or the
     states the forward kept), and against autograd through the plain
     forward (``rglru_gated_scan_ref``, ``wkv6_ref``) on the card; two runs
     bit-equal; f32 within 1e-4 of each gradient's largest |reference|
     (dlw DLW_RTOL), bf16 2e-2. Timed by CUDA-graph replay beside the plain
-    backward and the bound. Returns ``{kernel: {tag: row}}``."""
+    backward and the bound (K4's operations at the 3xTF32 rate), with the
+    earlier design's time (REC_BWD_BEFORE_MS) logged beside it. Returns
+    ``{kernel: {tag: row}}``."""
     from repro_torch.kernels.rglru_scan.ref import (rglru_gated_scan_bwd_ref,
                                                     rglru_gated_scan_ref)
     from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked_bwd_ref,
@@ -3157,7 +3240,7 @@ def phase_train_rec_kernels():
                 _, _, states = wkv._forward(*ins)
                 kern = functools.partial(wkv.wkv6_bwd, *ins, states, *douts)
                 plain = functools.partial(wkv6_chunked_bwd_ref, *ins,
-                                          *douts)
+                                          *douts, sub=16, tf32x3=True)
                 fwd_plain = wkv6_ref
                 read = (*ins[:5], states, *douts)
                 B, NH, S, hs = dims
@@ -3184,16 +3267,22 @@ def phase_train_rec_kernels():
             if not (worst < 1.0 and bit_equal):
                 raise AssertionError(f"{name} {tag} {dtn}: {rel}, bit-equal "
                                      f"{bit_equal}")
-            b_ms, b_by = bound(nbytes(*read, *got), flops, PEAK_FP32_FLOPS)
+            peak = REC_BWD_PEAK[name]
+            b_ms, b_by = bound(nbytes(*read, *got), flops, peak)
             rows[name][f"{tag} {dtn}"] = r = dict(
                 shape=shape, max_abs_err=max(err(a, b)
                                              for a, b in zip(got, ref)),
                 rel_err=rel, bit_equal=bit_equal,
                 ms=graph_ms(kern, reps=5, n=10),
                 plain_ms=graph_ms(plain, reps=2, n=5), library_ms=None,
-                bound_ms=b_ms, bound_by=b_by, peak="fp32 non-tensor")
-            log(f"    {name} {tag} {dtn}: backward {r['ms']:.5f} ms, plain "
-                f"{r['plain_ms']:.5f}, bound {b_ms:.5f} ({b_by})")
+                bound_ms=b_ms, bound_by=b_by, peak=PEAK_NAMES[peak])
+            # the earlier time is logged, not put in the row: the kernels line
+            # holds this run's measurements only
+            before = REC_BWD_BEFORE_MS[f"{tag} {dtn}"]
+            log(f"    {name} {tag} {dtn}: backward {r['ms']:.5f} ms (before "
+                f"{before:.5f}, {before / r['ms']:.2f}x), plain "
+                f"{r['plain_ms']:.5f}, bound {b_ms:.5f} ({b_by}, "
+                f"{r['peak']})")
             del ins, douts, got, again, ref, leaves, auto, kern, plain, read
             gc.collect()
             torch.cuda.empty_cache()
@@ -3597,6 +3686,7 @@ def phase_train():
     rows = {"flash_attention_bwd": phase_train_kernels()}
     phase_bwd_plans()
     rows.update(phase_train_rec_kernels())
+    phase_rglru_bwd_plans()
     log(f"  phase 8 (a) took {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     smoke = phase_train_smoke()
@@ -3824,7 +3914,8 @@ def phase_build():
     kernel's ptxas registers and spills, fail on any spill in ``NO_SPILL``,
     and print the HMMA count of each bf16 (tensor-core) instantiation of
     K1, of every dK/dV and dQ instantiation of K1's backward (bf16 and
-    f32), of K4's chunked kernels and of K6, failing if one has none."""
+    f32), of K4's chunked kernels, of K4's backward kernels and of K6,
+    failing if one has none."""
     from repro_torch.kernels import _build
 
     packages = sorted({v[0] for v in KERNELS.values()})
@@ -3867,6 +3958,14 @@ def phase_build():
         f"{json.dumps(sorted(wkv.values()))}")
     if len(wkv) != 16 or not all(wkv.values()):
         raise AssertionError(f"K4's chunked kernels lack tensor-core mma: "
+                             f"{wkv}")
+    wkv = {fn: n for fn, n in sass_counts("rwkv6_scan_bwd", "HMMA").items()
+           if "wkv_bwd_chunk" in fn or "wkv_bwd_out" in fn}
+    log(f"  HMMA instructions in K4's backward kernels (G and the "
+        f"per-chunk gradients, f32 and bf16, hs 8-64): "
+        f"{json.dumps(sorted(wkv.values()))}")
+    if len(wkv) != 16 or not all(wkv.values()):
+        raise AssertionError(f"K4's backward kernels lack tensor-core mma: "
                              f"{wkv}")
     k6 = {fn: n for fn, n in sass_counts("int8_matmul", "HMMA").items()
           if "int8_mm_tc" in fn}

@@ -42,6 +42,13 @@ BWD_NAME = "rglru_scan_bwd"
 GRAD_ITEM = ("ROADMAP Queue 2, 'Backward kernels': "
              "not queued: K3's (a, b) route, which no model calls")
 DTYPES = _build.DTYPE_CODES
+# the backward kernel (csrc/rglru_scan_bwd.cu): chunks (warps) a block at
+# most (MAXW), blocks a cluster at most (MAXCL), the steps of a chunk a
+# thread holds in registers (KMAX); the warps an SM the card holds of it
+MAX_WARPS = 16
+MAX_CLUSTER = 8
+KEEP_STEPS = 8
+WAVE_WARPS = 16
 
 # wrapper calls that launched, either route, those of the gated route,
 # and the gated route's backward calls, since the last reset; read and
@@ -77,8 +84,45 @@ def _lib_bwd():
     fn = lib.faillite_rglru_gated_scan_bwd
     if fn.argtypes is None:
         fn.restype = _I
-        fn.argtypes = [_P] * 14 + [_I] * 4 + [_L] * 6 + [_P]
+        fn.argtypes = [_P] * 14 + [_I] * 8 + [_L] * 6 + [_P]
     return fn
+
+
+def bwd_vec(W: int) -> int:
+    """Channels a thread of the backward kernel: two (one
+    ``__nv_bfloat162`` or ``float2`` load) where the width is even, one
+    otherwise."""
+    return 2 if W % 2 == 0 else 1
+
+
+def plan_chunks(B: int, S: int, W: int, vec: int,
+                sm_count: int) -> tuple:
+    """The backward kernel's cut of the sequence: (cl, nw, L), a thread
+    block cluster of ``cl`` blocks of ``nw`` chunks of L steps each, with
+    L = ceil(S / (cl nw)).
+
+    A block owns 32 ``vec`` channels of a row, a warp a chunk, a thread L
+    steps of its ``vec`` channels; the grid holds B ceil(W / 32 vec) cl
+    nw warps. The chunks are the most, a power of two at most
+    MAX_CLUSTER x MAX_WARPS and S rounded up, whose grid the card holds
+    at once (WAVE_WARPS warps an SM of ``sm_count``: blocks of 16 warps at
+    up to 128 registers a thread), so no block waits for another to
+    finish; in blocks of MAX_WARPS chunks where there are that many. At
+    recurrentgemma-2b's width that is 32 chunks at B = 1 (L = 8 at
+    S = 256: ga and dh held in registers between the passes) and 16 at
+    B = 2, at least two waves of warps (two on each of an SM's four
+    schedulers). A function of its arguments alone, so two launches of
+    one shape give the same bits.
+    """
+    if min(B, S, W, vec, sm_count) <= 0:
+        raise ValueError(f"bad plan arguments {(B, S, W, vec, sm_count)}")
+    groups = -(-W // (32 * vec))
+    top = min(MAX_CLUSTER * MAX_WARPS, 1 << (S - 1).bit_length())
+    slots = 1
+    while slots < top and B * groups * slots * 2 <= WAVE_WARPS * sm_count:
+        slots *= 2
+    nw = min(MAX_WARPS, slots)
+    return slots // nw, nw, -(-S // slots)
 
 
 def _check_state(x, h0, h_last):
@@ -209,9 +253,9 @@ def rglru_gated_scan_bwd(ga, gx, xb, log_lambda, h0, h, dh, dh_last):
     """Gradients (dga, dgx, dxb, dlog_lambda, dh0) of ``rglru_gated_scan``
     at (ga, gx, xb, log_lambda, h0), given its output ``h`` (B,S,W) fp32
     and the gradients ``dh`` (B,S,W) of h and ``dh_last`` (B,W) of the
-    last state: the backward kernel on the card, the plain version on the
-    CPU. Each gradient has its input's dtype."""
-    global BWD_LAUNCHES
+    last state: the backward kernel on the card, its chunks planned by
+    ``plan_chunks``; the plain version on the CPU. Each gradient has its
+    input's dtype."""
     _check_gated(ga, gx, xb, log_lambda, h0, None)
     B, S, W = xb.shape
     for name, t, shape in (("h", h, (B, S, W)), ("dh", dh, (B, S, W)),
@@ -225,20 +269,38 @@ def rglru_gated_scan_bwd(ga, gx, xb, log_lambda, h0, h, dh, dh_last):
                                         dh_last)
     if any(t.stride(-1) != 1 for t in (ga, gx, xb)):
         raise ValueError("ga, gx and xb need a unit stride on the width")
+    return _bwd_launch(ga, gx, xb, log_lambda, h0, h, dh, dh_last,
+                       plan_chunks(B, S, W, bwd_vec(W),
+                                   _build.sm_count(xb.device.index)))
+
+
+def _bwd_launch(ga, gx, xb, log_lambda, h0, h, dh, dh_last, plan):
+    """The backward kernel on checked CUDA tensors under ``plan`` = (cl,
+    nw, L), ``plan_chunks``'s or another that covers S (chip_smoke.py
+    times several)."""
+    global BWD_LAUNCHES
+    B, S, W = xb.shape
+    cl, nw, L = plan
+    vec = bwd_vec(W)
+    if vec == 2:
+        # a pair is one load: even strides, aligned rows
+        ga, gx, xb = (t if t.data_ptr() % (2 * t.element_size()) == 0
+                      and t.stride(0) % 2 == 0 and t.stride(1) % 2 == 0
+                      else t.contiguous() for t in (ga, gx, xb))
     h0, h, dh, dh_last, log_lambda = (
         t.contiguous() for t in (h0, h, dh, dh_last, log_lambda))
     grads = [torch.empty((B, S, W), dtype=xb.dtype, device=xb.device)
              for _ in range(3)]
     dlam = torch.empty((W,), dtype=torch.float32, device=xb.device)
     dh0 = torch.empty((B, W), dtype=torch.float32, device=xb.device)
-    part = torch.empty((B, W), dtype=torch.float32, device=xb.device)
+    part = torch.empty((B * cl, W), dtype=torch.float32, device=xb.device)
     stream = torch.cuda.current_stream(xb.device).cuda_stream
     err = _lib_bwd()(
         ga.data_ptr(), gx.data_ptr(), xb.data_ptr(), log_lambda.data_ptr(),
         h0.data_ptr(), h.data_ptr(), dh.data_ptr(), dh_last.data_ptr(),
         *(g.data_ptr() for g in grads), dlam.data_ptr(), dh0.data_ptr(),
-        part.data_ptr(), DTYPES[xb.dtype], B, S, W, *ga.stride()[:2],
-        *gx.stride()[:2], *xb.stride()[:2], stream)
+        part.data_ptr(), DTYPES[xb.dtype], B, S, W, vec, cl, nw, L,
+        *ga.stride()[:2], *gx.stride()[:2], *xb.stride()[:2], stream)
     _build.check(err, BWD_NAME)
     with _count_lock:
         BWD_LAUNCHES += 1

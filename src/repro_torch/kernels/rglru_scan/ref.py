@@ -8,7 +8,9 @@ one copy of that arithmetic), and ``rglru_gated_scan_ref`` the two in a
 row: what the gated route computes. ``rglru_scan_chunked_ref`` is the CUDA
 kernel's chunked algorithm, for the tests. ``rglru_gated_scan_bwd_ref`` is
 the gated route's reverse pass: the oracle of ``csrc/rglru_scan_bwd.cu``
-and the backward of ``RGLRUGatedScanFn`` on a CPU tensor.
+and the backward of ``RGLRUGatedScanFn`` on a CPU tensor;
+``rglru_gated_scan_bwd_chunked_ref`` is the same reverse pass in that
+kernel's chunked order, for the tests.
 """
 
 from __future__ import annotations
@@ -86,6 +88,76 @@ def rglru_gated_scan_bwd_ref(ga, gx, xb, log_lambda, h0, h, dh, dh_last):
         g[:, t] = gt
         carry = a[:, t] * gt
     dh0 = carry
+    da = g * h_prev
+    dmult = torch.where(one_m > 1e-12, -e2 / mult, torch.zeros_like(mult))
+    dlog_a = da * a + g * i * x * dmult
+    dga = dlog_a * sp_c * r * (1.0 - r)
+    dgx = g * mult * x * i * (1.0 - i)
+    dxb = g * mult * i
+    dlam = ((dlog_a * r).sum((0, 1)) * -RGLRU_C
+            * torch.sigmoid(log_lambda.float()))
+    return (dga.to(ga.dtype), dgx.to(gx.dtype), dxb.to(xb.dtype),
+            dlam.to(log_lambda.dtype), dh0)
+
+
+def rglru_gated_scan_bwd_chunked_ref(ga, gx, xb, log_lambda, h0, h, dh,
+                                     dh_last, *, chunk, per_block=None):
+    """``rglru_gated_scan_bwd_ref`` in the order of the backward kernel
+    (``csrc/rglru_scan_bwd.cu``) with chunks of ``chunk`` steps, grouped
+    in blocks of ``per_block`` chunks (all of them by default): each
+    chunk's adjoint scanned from a zero carry, right to left, to
+    (P, H) = (prod a, a_{t0} g_{t0}); with f_k(x) = P_k x + H_k, a
+    Kogge-Stone suffix scan inside each block gives F_k = f_k o ... o
+    f_last of the block; the carry at a block's right end is dh_last
+    through the later blocks' composites, last to first; the carry into
+    chunk k is F_{k+1} of it (the identity after the block's last chunk)
+    and dh0 the first block's composite of it; each chunk rescanned from
+    its carry. Steps past S are the identity (a = 1, dh = 0). Same
+    contract and returns as ``rglru_gated_scan_bwd_ref``.
+    """
+    r = torch.sigmoid(ga.float())
+    i = torch.sigmoid(gx.float())
+    x = xb.float()
+    sp_c = -RGLRU_C * F.softplus(log_lambda.float())
+    log_a = sp_c * r
+    a = torch.exp(log_a)
+    e2 = torch.exp(2.0 * log_a)
+    one_m = 1.0 - e2
+    mult = torch.sqrt(torch.clamp(one_m, min=1e-12))
+    dh = dh.float()
+    B, S, W = dh.shape
+    L = chunk
+    nb = per_block or -(-S // L)
+    n = -(-S // (L * nb)) * nb                 # chunks, empty ones included
+    pad = n * L - S
+    ap = torch.cat([a, a.new_ones(B, pad, W)], 1).reshape(B, n, L, W)
+    dp = torch.cat([dh, dh.new_zeros(B, pad, W)], 1).reshape(B, n, L, W)
+    P, H = a.new_ones(B, n, W), a.new_zeros(B, n, W)
+    for u in range(L - 1, -1, -1):           # pass 1, every chunk at once
+        H = ap[:, :, u] * (dp[:, :, u] + H)
+        P = P * ap[:, :, u]
+    P, H = P.reshape(B, n // nb, nb, W), H.reshape(B, n // nb, nb, W)
+    d = 1
+    while d < nb:                            # F_k = f_k o ... o f_last
+        Pn = torch.cat([P[:, :, d:], P.new_ones(B, n // nb, d, W)], 2)
+        Hn = torch.cat([H[:, :, d:], H.new_zeros(B, n // nb, d, W)], 2)
+        H, P = P * Hn + H, P * Pn
+        d *= 2
+    c = dh_last.float()
+    ends = [None] * (n // nb)                # the carry at each block's end
+    for q in range(n // nb - 1, -1, -1):
+        ends[q] = c
+        c = P[:, q, 0] * c + H[:, q, 0]
+    dh0 = c
+    ends = torch.stack(ends, 1)[:, :, None]
+    carry = torch.cat([P[:, :, 1:] * ends + H[:, :, 1:], ends], 2)
+    carry = carry.reshape(B, n, W)
+    g = torch.empty_like(dp)
+    for u in range(L - 1, -1, -1):           # pass 2, from the carries
+        g[:, :, u] = dp[:, :, u] + carry
+        carry = ap[:, :, u] * g[:, :, u]
+    g = g.reshape(B, n * L, W)[:, :S]
+    h_prev = torch.cat([h0.float()[:, None], h.float()[:, :-1]], dim=1)
     da = g * h_prev
     dmult = torch.where(one_m > 1e-12, -e2 / mult, torch.zeros_like(mult))
     dlog_a = da * a + g * i * x * dmult

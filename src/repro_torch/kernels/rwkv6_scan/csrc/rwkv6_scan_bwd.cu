@@ -6,12 +6,13 @@
 // autodiff. This is the reverse of `faillite_wkv6_chunked` in
 // rwkv6_scan.cu, whose TPU counterpart is `_wkv_kernel` in
 // src/repro/kernels/rwkv6_scan/rwkv6_scan.py, and its plain version is
-// `wkv6_chunked_bwd_ref` in ../ref.py. Per (batch row, head), chunks of
-// CHUNK = 32 steps (the last one padded with zeros, as the forward pads),
-// with cum the inclusive and cum_prev the exclusive cumulative sum of lw in
-// a chunk, L = cum of its last row, S_in the chunk's incoming state (the
-// forward's `states` buffer, kept by the autograd Function) and dS_out the
-// adjoint of its outgoing state:
+// `wkv6_chunked_bwd_ref(..., sub=16)` in ../ref.py. Per (batch row, head),
+// chunks of CHUNK = 32 steps (the last one padded with zeros, as the
+// forward pads), cut into sub-chunks of SUB = 16 rows as the forward cuts
+// them, with cum the inclusive and cum_prev the exclusive cumulative sum of
+// lw in a chunk, L = cum of its last row, S_in the chunk's incoming state
+// (the forward's `states` buffer, kept by the autograd Function) and dS_out
+// the adjoint of its outgoing state:
 //
 //   (a) `wkv_bwd_chunk_kernel`, a block per (chunk, head, row): the
 //       chunk's G = (r e^{cum_prev})^T dy (hs x hs) and its decay e^{L};
@@ -35,10 +36,37 @@
 //       of du = sum_t (dy_t . v_t) r_t k_t;
 //   (d) `wkv_bwd_du_kernel`: du summed over rows and chunks in order.
 //
-// Every exponential evaluated has an exponent <= 0 (the pairs E computed
-// one by one, as the forward computes its diagonal sub-chunks), so lw
-// needs no clamp. Sums run in a fixed order with no atomics: two launches
-// give the same bits. The products run in scalar fp32 (no tensor cores).
+// Products. Every matrix product runs on the tensor cores as mma.sync
+// m16n8k8 TF32 with fp32 sums, split 3xTF32 (hi.hi + hi.lo + lo.hi) where an
+// operand is fp32 data, as the forward's: G in (a); in (c) dA = dy v^T,
+// dr_inter = e^{cum_prev} (dy S_in^T), dk_state = e^{L - cum} (v dS_out^T),
+// dv = A^T dy + (k e^{L - cum}) dS_out and the off-diagonal sub-chunk pairs.
+// A bf16 v is exact in TF32 and is not split. For t in sub-chunk p and s
+// before its first row b_p, E factors into R~_t = r_t e^{cum_prev_t -
+// cum_prev_{b_p}} and K~_s = k_s e^{cum_prev_{b_p} - cum_s}, both exponents
+// <= 0: A's off-diagonal tile is R~ K~^T, and those pairs' dr_in and dk_in
+// are e^{cum_prev_t - cum_prev_{b_p}} (dA K~) and e^{cum_prev_{b_p} - cum_s}
+// (dA^T R~). The pairs inside a diagonal sub-chunk (2 x 120 a chunk) stay
+// exact in fp32: each E[t, s, i] is evaluated once, by the thread that owns
+// channel i of a set of rows t of the sub-chunk, which adds it into dr_in
+// and dk_in in registers and into its share of A[t, s]; the shares of A are
+// summed across the channels by a butterfly reduce-scatter of warp
+// shuffles, and the row sets' dk_in and the warps' A in set order. So every
+// exponential evaluated has an exponent <= 0 and lw needs no clamp. Sums run
+// in a fixed order with no atomics: two launches give the same bits.
+//
+// Layout chosen for the H100: kernel (c) keeps every tile of its chunk in
+// shared memory (r, k, v, dy, cum, S_in, dS_out, A, dA, the off-diagonal
+// factors and the dr/dk partials: 104 KB at hs = 64), so two blocks of
+// eight warps fit on an SM (228 KB) and a block's load, cumsum and product
+// phases overlap the other's; its rows are padded to 4 mod 32 floats (the
+// A fragments and the B fragments read with the row on the fragment's
+// group index are then conflict-free) and A/dA to 8 mod 32 (read
+// transposed). Warps tile each 32 x hs product as 2 row tiles x 4 column
+// groups, so every warp holds one tile of dr_inter, dk_state and dv at once
+// and finishes dr, dk, dv and the dlw terms of its elements in registers.
+// The grid is (chunk, head, row), ceil(S / 32) x nh x B blocks: 640 at
+// rwkv6-3b's B=2 S=256, 2.4 waves of two blocks an SM.
 //
 // Layout: r, k, v (B, S, nh, hs) in the activation dtype (fp32 or bf16),
 // lw and dy (B, S, nh, hs) fp32, all read through batch/sequence/head
@@ -50,63 +78,132 @@
 //
 // What bounds it on the H100: the function needs about 14 hs^2 operations
 // per (b, h, t) (the recurrence's reverse: the state's adjoint, dr, dk, dv,
-// dlw and the state recomputed), which at hs = 64 lies above the bytes it
-// must move, so fp32 operations set its bound. This kernel does more: the
-// pairs' exponentials (about C hs per step, three times each) and each
-// chunk's hs x hs state and its adjoint through memory.
-
+// dlw and the state recomputed), which at hs = 64 and the 3xTF32 rate lies
+// near the bytes it must move. The chunked form moves more: each chunk's
+// hs x hs state, G and adjoint through memory (about 4 x 16 KB a chunk).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int CHUNK = 32;  // steps of a chunk, as the forward
-constexpr int NTH = 256;   // threads of kernels (a) and (c)
+constexpr int SUB = 16;    // rows of a sub-chunk, as the forward
+constexpr int NSUB = CHUNK / SUB;
+constexpr int NTH = 256;   // threads of kernels (a) and (c): eight warps
+constexpr int NWARP = NTH / 32;
 constexpr int SCAN_NT = 256;
+constexpr int LT = CHUNK + 8;  // row stride of A and dA (8 mod 32)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+
+// two consecutive outputs, n even
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 struct Strides {
   long long b, s, h;
 };
 
-// rows t0 .. t0 + CHUNK - 1 of x (b, :, h, :) into a [CHUNK][ld] tile as
-// fp32, rows past S as zeros
-template <typename T, int HS>
-__device__ __forceinline__ void load_tile(const T* __restrict__ x, Strides xs,
-                                          int b, int h, int t0, int S,
-                                          float* tile, int ld) {
-  for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
-    const int t = e / HS, i = e % HS;
-    const long long ta = t0 + t;
-    tile[t * ld + i] =
-        ta < S ? to_f(x[b * xs.b + ta * xs.s + h * xs.h + i]) : 0.f;
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32: hi keeps 11 significant bits, lo the next 11
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp: acc[j] (the 16 x 8 tile at rows m0.., columns n0 + 8 j, j < nj)
+// += A[m0 : m0 + 16, kb : ke] @ B[kb : ke, n0 + 8 j ..], with A(row, kk) =
+// fa(row, kk) and B(kk, col) = fb(kk, col) in fp32, 3xTF32; SPLIT_A /
+// SPLIT_B false drops that operand's low part (exact in TF32). Fragment
+// layouts of m16n8k8 .tf32 (g = lane / 4, t = lane % 4): a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (t, g), b1 (t + 4, g);
+// c0/c1 (g, 2t / 2t + 1), c2/c3 (g + 8, 2t / 2t + 1).
+template <int NJ, bool SPLIT_A, bool SPLIT_B, class FA, class FB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NJ][4], int m0, int n0,
+                                         int nj, int kb, int ke, FA fa,
+                                         FB fb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int k0 = kb; k0 < ke; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split(fa(m0 + g, k0 + t), ah[0], al[0]);
+    split(fa(m0 + g + 8, k0 + t), ah[1], al[1]);
+    split(fa(m0 + g, k0 + t + 4), ah[2], al[2]);
+    split(fa(m0 + g + 8, k0 + t + 4), ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
+        const int n = n0 + 8 * j + g;
+        uint32_t bh0, bl0, bh1, bl1;
+        split(fb(k0 + t, n), bh0, bl0);
+        split(fb(k0 + t + 4, n), bh1, bl1);
+        if (SPLIT_A) mma_tf32(acc[j], al, bh0, bh1);
+        if (SPLIT_B) mma_tf32(acc[j], ah, bl0, bl1);
+        mma_tf32(acc[j], ah, bh0, bh1);
+      }
+    }
   }
 }
 
-// sc[0] = 0 and sc[t + 1] = cum_t (inclusive) down each channel's column of
-// lw in a [CHUNK + 1][ld] tile, one thread per channel, in step order (the
-// forward's own order)
+template <int NJ>
+__device__ __forceinline__ void zero(float (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+}
+
+// Each thread of kernels (a) and (c) loads one channel i = tid % HS of
+// ROWS consecutive rows of the chunk (part = tid / HS of PARTS), all of its
+// global loads issued before any is used; consecutive threads read
+// consecutive channels. Rows past S are zeros, as `wkv_chunked` pads.
 template <int HS>
-__device__ __forceinline__ void load_cum(const float* __restrict__ lw,
-                                         Strides ws, int b, int h, int t0,
-                                         int S, float* sc, int ld) {
-  load_tile<float, HS>(lw, ws, b, h, t0, S, sc + ld, ld);
-  if (threadIdx.x < HS) sc[threadIdx.x] = 0.f;
-  __syncthreads();
+struct Rows {
+  static constexpr int PARTS = NTH / HS, ROWS = CHUNK / PARTS;
+};
+
+template <typename T, int HS>
+__device__ __forceinline__ void load_rows(const T* __restrict__ x, Strides xs,
+                                          int b, int h, int t0, int S,
+                                          float (&out)[Rows<HS>::ROWS]) {
+  const int i = threadIdx.x % HS, part = threadIdx.x / HS;
+#pragma unroll
+  for (int q = 0; q < Rows<HS>::ROWS; ++q) {
+    const long long ta = t0 + part * Rows<HS>::ROWS + q;
+    out[q] = ta < S ? to_f(x[b * xs.b + ta * xs.s + h * xs.h + i]) : 0.f;
+  }
+}
+
+// In place, the inclusive cumulative sum of lw down each channel's column
+// of a [CHUNK][ld] shared tile, one thread per channel, in step order (the
+// forward's own order and rounding)
+template <int HS>
+__device__ __forceinline__ void column_cumsum(float* col0, int ld) {
   if (threadIdx.x < HS) {
-    float* col = sc + ld + threadIdx.x;
+    float* col = col0 + threadIdx.x;
     float run = 0.f;
 #pragma unroll
     for (int t = 0; t < CHUNK; ++t) {
@@ -116,42 +213,79 @@ __device__ __forceinline__ void load_cum(const float* __restrict__ lw,
   }
 }
 
-// (a): per (chunk, head, row), G = (r e^{cum_prev})^T dy into gbuf and
-// e^{L} into decay
+// (a): per (chunk, head, row), G = (r e^{cum_prev})^T dy (hs x hs) into gbuf
+// and e^{L} into decay: the forward's state kernel with (r e^{cum_prev}, dy)
+// in place of (k e^{L - cum}, v)
 template <typename T, int HS>
 __global__ void __launch_bounds__(NTH)
 wkv_bwd_chunk_kernel(const T* __restrict__ r, const float* __restrict__ lw,
                      const float* __restrict__ dy, float* __restrict__ gbuf,
                      float* __restrict__ decay, int S, int NH, int nc,
                      Strides rs, Strides ws, Strides ds) {
-  __shared__ float sr[CHUNK][HS], sd[CHUNK][HS], sc[CHUNK + 1][HS];
+  // both operands are read with the time index on the fragment's t: rows
+  // padded to 8 mod 32 floats
+  constexpr int LB = HS + 8, LC = HS + 4, ROWS = Rows<HS>::ROWS;
+  __shared__ float sr[CHUNK][LB], sd[CHUNK][LB], sc[CHUNK][LC];
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int t0 = c * CHUNK;
-  load_tile<T, HS>(r, rs, b, h, t0, S, &sr[0][0], HS);
-  load_tile<float, HS>(dy, ds, b, h, t0, S, &sd[0][0], HS);
-  load_cum<HS>(lw, ws, b, h, t0, S, &sc[0][0], HS);
+  const int i = threadIdx.x % HS, row0 = (threadIdx.x / HS) * ROWS;
+  float rr[ROWS], dr[ROWS], wr[ROWS];
+  load_rows<T, HS>(r, rs, b, h, t0, S, rr);
+  load_rows<float, HS>(dy, ds, b, h, t0, S, dr);
+  load_rows<float, HS>(lw, ws, b, h, t0, S, wr);
+#pragma unroll
+  for (int q = 0; q < ROWS; ++q) {
+    sr[row0 + q][i] = rr[q];
+    sd[row0 + q][i] = dr[q];
+    sc[row0 + q][i] = wr[q];
+  }
   __syncthreads();
-  for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
-    const int t = e / HS, i = e % HS;
-    sr[t][i] *= expf(sc[t][i]);  // r e^{cum_prev}, exponent <= 0
+  column_cumsum<HS>(&sc[0][0], LC);  // sc[t] = cum_t (inclusive)
+  __syncthreads();
+  // r_t e^{cum_prev_t}, exponent <= 0
+#pragma unroll
+  for (int q = 0; q < ROWS; ++q) {
+    const int t = row0 + q;
+    if (t > 0) sr[t][i] *= expf(sc[t - 1][i]);
   }
   const long long bhc = ((long long)b * NH + h) * nc + c;
   if (threadIdx.x < HS)
-    decay[bhc * HS + threadIdx.x] = expf(sc[CHUNK][threadIdx.x]);
+    decay[bhc * HS + threadIdx.x] = expf(sc[CHUNK - 1][threadIdx.x]);
   __syncthreads();
-  float* g = gbuf + bhc * HS * HS;
-  for (int e = threadIdx.x; e < HS * HS; e += NTH) {
-    const int i = e / HS, j = e % HS;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < CHUNK; ++t) acc = fmaf(sr[t][i], sd[t][j], acc);
-    g[e] = acc;
+
+  // warps tile the (HS x HS) output: WM along the key channels (16 rows a
+  // tile), WN along the value channels, NJ tiles of 8 columns each
+  constexpr int MT = (HS + 15) / 16, NT8 = HS / 8;
+  constexpr int WM = MT, WN = NWARP / WM, NJ = (NT8 + WN - 1) / WN;
+  const int warp = threadIdx.x >> 5;
+  const int mt = warp / WN, wn = warp % WN;
+  const int nj = min(NJ, NT8 - wn * NJ);
+  if (mt >= MT || nj <= 0) return;
+  float acc[NJ][4];
+  zero(acc);
+  const int m0 = mt * 16, n0 = wn * NJ * 8;
+  const float* rp = &sr[0][0];
+  const float* dp = &sd[0][0];
+  warp_mma<NJ, true, true>(
+      acc, m0, n0, nj, 0, CHUNK,
+      [=](int i, int t) { return i < HS ? rp[t * LB + i] : 0.f; },
+      [=](int t, int n) { return dp[t * LB + n]; });
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  float* out = gbuf + bhc * HS * HS;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if (j < nj) {
+      const int n = n0 + 8 * j + 2 * tq;
+      const int i0 = m0 + g, i1 = m0 + g + 8;
+      if (i0 < HS) store2(out + i0 * HS + n, acc[j][0], acc[j][1]);
+      if (i1 < HS) store2(out + i1 * HS + n, acc[j][2], acc[j][3]);
+    }
   }
 }
 
 // (b): per (b, h) state element e, the chunks last to first: write dS_out
 // of chunk c over its G and carry dS_in = e^{L_c} dS_out + G_c; ds0 gets
-// dS_in of chunk 0
+// dS_in of chunk 0. GRP chunks' loads are issued together.
 __global__ void __launch_bounds__(SCAN_NT)
 wkv_bwd_scan_kernel(float* __restrict__ gbuf, const float* __restrict__ decay,
                     const float* __restrict__ ds_out, float* __restrict__ ds0,
@@ -164,24 +298,90 @@ wkv_bwd_scan_kernel(float* __restrict__ gbuf, const float* __restrict__ decay,
   float* p = gbuf + bh * nc * step + e;
   const float* dc = decay + bh * nc * HS + e / HS;
   float carry = ds_out[bh * step + e];
-  for (int c = nc - 1; c >= 0; --c) {
-    const float gc = p[c * step];
-    p[c * step] = carry;
-    carry = fmaf(dc[(long long)c * HS], carry, gc);
+  constexpr int GRP = 8;
+  for (int c1 = nc; c1 > 0; c1 -= GRP) {
+    float gc[GRP], dd[GRP];
+#pragma unroll
+    for (int q = 0; q < GRP; ++q) {
+      const int c = c1 - 1 - q;
+      if (c >= 0) {
+        gc[q] = p[c * step];
+        dd[q] = dc[(long long)c * HS];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < GRP; ++q) {
+      const int c = c1 - 1 - q;
+      if (c >= 0) {
+        p[c * step] = carry;
+        carry = fmaf(dd[q], carry, gc[q]);
+      }
+    }
   }
   ds0[bh * step + e] = carry;
 }
 
+// The butterfly reduce-scatter of GW values across each aligned group of GW
+// lanes: lane l of a group returns the group's sum of value l % GW. Each
+// step O keeps half the values and adds the partner's half, in a fixed
+// order (a template step, so every index is a constant).
+template <int GW, int O>
+__device__ __forceinline__ void reduce_step(float (&v)[GW], int lane) {
+  if constexpr (O >= 1) {
+    const bool up = lane & O;
+#pragma unroll
+    for (int k = 0; k < O; ++k) {
+      const float send = up ? v[k] : v[k + O];
+      const float keep = up ? v[k + O] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    reduce_step<GW, O / 2>(v, lane);
+  }
+}
+
+template <int GW>
+__device__ __forceinline__ float reduce_scatter(float (&v)[GW]) {
+  reduce_step<GW, GW / 2>(v, threadIdx.x & 31);
+  return v[0];
+}
+
+// The exact pairs of the diagonal sub-chunks. Thread (channel i, sub-chunk
+// p, row set q) owns rows t = q + R m (m < RPT) of sub-chunk p and walks the
+// pair positions (m, s), s < R (m + 1), a superset of s <= t that is the
+// same for every q: s < t is a pair, s = t the bonus, s > t a zero.
+template <int HS>
+struct Diag {
+  static constexpr int R = NTH / (HS * NSUB);  // row sets
+  static constexpr int RPT = SUB / R;          // rows a thread
+  static constexpr int GW = HS < 32 ? HS : 32; // lanes of a channel group
+  static constexpr int H = HS / GW;            // channel groups (warps)
+  static constexpr int NPOS = R * RPT * (RPT + 1) / 2;
+  static constexpr int NB = (NPOS + GW - 1) / GW;  // reduce-scatter batches
+  static constexpr int NPH = R > H ? R : H;        // ordered merge phases
+  // pair position pos -> its row block m (positions R m (m + 1) / 2 ..)
+  static constexpr __host__ __device__ int row_of(int pos) {
+    int m = 0;
+    while (m < RPT - 1 && pos >= R * (m + 1) * (m + 2) / 2) ++m;
+    return m;
+  }
+};
+
 // the dynamic shared memory of kernel (c), in floats
 template <int HS>
 constexpr int out_smem_floats() {
-  return (CHUNK * 9 + 1) * (HS + 1) + 2 * HS * (HS + 1) + 2 * CHUNK * CHUNK +
-         HS;
+  return 6 * CHUNK * (HS + 4) + (CHUNK + 1) * (HS + 4) + 2 * HS * (HS + 4) +
+         2 * CHUNK * LT + HS;
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
 }
 
 // (c): per (chunk, head, row), dr, dk, dv, dlw and the chunk's du partial
 template <typename T, int HS>
-__global__ void __launch_bounds__(NTH)
+__global__ void __launch_bounds__(NTH, 2)
 wkv_bwd_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ lw,
                    const float* __restrict__ u,
@@ -192,132 +392,321 @@ wkv_bwd_out_kernel(const T* __restrict__ r, const T* __restrict__ k,
                    float* __restrict__ dlw, float* __restrict__ du_part,
                    int S, int NH, int nc, Strides rs, Strides ks, Strides vs,
                    Strides ws, Strides ds) {
-  // rows of HS + 1 floats: the pair loops read down a column by s (and
-  // the state tiles by i) one lane a row, on distinct banks
-  constexpr int LD = HS + 1, LS = HS + 1;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int LA = HS + 4;
   extern __shared__ float smem[];
-  float* sr = smem;                  // [CHUNK][LD] r
-  float* sk = sr + CHUNK * LD;       // [CHUNK][LD] k
-  float* sv = sk + CHUNK * LD;       // [CHUNK][LD] v
-  float* sd = sv + CHUNK * LD;       // [CHUNK][LD] dy
-  float* sx = sd + CHUNK * LD;       // [CHUNK][LD] X = r dr'
-  float* sy = sx + CHUNK * LD;       // [CHUNK][LD] Y = k dk' (intra)
-  float* sz = sy + CHUNK * LD;       // [CHUNK][LD] Z = k dk' (state)
-  float* skd = sz + CHUNK * LD;      // [CHUNK][LD] k e^{L - cum}
-  float* sc = skd + CHUNK * LD;      // [CHUNK+1][LD] 0, cum_0, .., cum_last
-  float* ss = sc + (CHUNK + 1) * LD; // [HS][LS] S_in
-  float* sD = ss + HS * LS;          // [HS][LS] dS_out
-  float* sa = sD + HS * LS;          // [CHUNK][CHUNK] A, bonus on the diagonal
-  float* sda = sa + CHUNK * CHUNK;   // [CHUNK][CHUNK] dy_t . v_s, s <= t
-  float* su = sda + CHUNK * CHUNK;   // [HS] u
+  float* sr = smem;                  // [CHUNK][LA] r
+  float* sk = sr + CHUNK * LA;       // [CHUNK][LA] k
+  float* sv = sk + CHUNK * LA;       // [CHUNK][LA] v, then Z
+  float* sd = sv + CHUNK * LA;       // [CHUNK][LA] dy
+  float* sq = sd + CHUNK * LA;       // [CHUNK][LA] K~ (p = 0), R~ (p = 1),
+                                     //   then dk_in, then Y
+  float* sp = sq + CHUNK * LA;       // [CHUNK][LA] dr_in, then X
+  float* sc = sp + CHUNK * LA;       // [CHUNK+1][LA] row t: cum_prev_t
+  float* ss = sc + (CHUNK + 1) * LA; // [HS][LA] S_in
+  float* sD = ss + HS * LA;          // [HS][LA] dS_out
+  float* sa = sD + HS * LA;          // [CHUNK][LT] A, bonus on the diagonal
+  float* sda = sa + CHUNK * LT;      // [CHUNK][LT] dA = dy v^T
+  float* su = sda + CHUNK * LT;      // [HS] u
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int t0 = c * CHUNK;
   const long long bhc = ((long long)b * NH + h) * nc + c;
-  load_tile<T, HS>(r, rs, b, h, t0, S, sr, LD);
-  load_tile<T, HS>(k, ks, b, h, t0, S, sk, LD);
-  load_tile<T, HS>(v, vs, b, h, t0, S, sv, LD);
-  load_tile<float, HS>(dy, ds, b, h, t0, S, sd, LD);
-  const float* sin_g = states + bhc * HS * HS;
-  const float* dso_g = dsout + bhc * HS * HS;
-  for (int e = threadIdx.x; e < HS * HS; e += NTH) {
-    ss[(e / HS) * LS + e % HS] = sin_g[e];
-    sD[(e / HS) * LS + e % HS] = dso_g[e];
-  }
-  if (threadIdx.x < HS) su[threadIdx.x] = u[h * HS + threadIdx.x];
-  load_cum<HS>(lw, ws, b, h, t0, S, sc, LD);
-  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
 
-  for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
-    const int t = e / HS, i = e % HS;
-    skd[t * LD + i] =
-        sk[t * LD + i] * expf(sc[CHUNK * LD + i] - sc[(t + 1) * LD + i]);
-  }
-  // A (the pairs s < t and the bonus at s = t) and dy_t . v_s for s <= t
-  for (int x = threadIdx.x; x < CHUNK * CHUNK; x += NTH) {
-    const int t = x / CHUNK, s = x % CHUNK;
-    float a = 0.f, da = 0.f;
-    if (s < t) {
-      for (int i = 0; i < HS; ++i)
-        a = fmaf(sr[t * LD + i] * sk[s * LD + i],
-                 expf(sc[t * LD + i] - sc[(s + 1) * LD + i]), a);
-    } else if (s == t) {
-      for (int i = 0; i < HS; ++i)
-        a = fmaf(sr[t * LD + i] * su[i], sk[t * LD + i], a);
+  // S_in and dS_out by cp.async (16 bytes a copy), then the rows
+  {
+    const float* sin_g = states + bhc * HS * HS;
+    const float* dso_g = dsout + bhc * HS * HS;
+    for (int e4 = threadIdx.x; e4 < HS * HS / 4; e4 += NTH) {
+      const int e = 4 * e4, row = e / HS, col = e % HS;
+      cp_async16(ss + row * LA + col, sin_g + e);
+      cp_async16(sD + row * LA + col, dso_g + e);
     }
-    if (s <= t) {
-      for (int j = 0; j < HS; ++j)
-        da = fmaf(sd[t * LD + j], sv[s * LD + j], da);
+    asm volatile("cp.async.commit_group;\n" ::);
+    constexpr int ROWS = Rows<HS>::ROWS;
+    const int i = threadIdx.x % HS, row0 = (threadIdx.x / HS) * ROWS;
+    float rr[ROWS], kr[ROWS], vr[ROWS], dr_[ROWS], wr[ROWS];
+    load_rows<T, HS>(r, rs, b, h, t0, S, rr);
+    load_rows<T, HS>(k, ks, b, h, t0, S, kr);
+    load_rows<T, HS>(v, vs, b, h, t0, S, vr);
+    load_rows<float, HS>(dy, ds, b, h, t0, S, dr_);
+    load_rows<float, HS>(lw, ws, b, h, t0, S, wr);
+    if (threadIdx.x < HS) {
+      su[threadIdx.x] = u[h * HS + threadIdx.x];
+      sc[threadIdx.x] = 0.f;
     }
-    sa[x] = a;
-    sda[x] = da;
+#pragma unroll
+    for (int q = 0; q < ROWS; ++q) {
+      const int t = row0 + q;
+      sr[t * LA + i] = rr[q];
+      sk[t * LA + i] = kr[q];
+      sv[t * LA + i] = vr[q];
+      sd[t * LA + i] = dr_[q];
+      sc[(t + 1) * LA + i] = wr[q];
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
   }
   __syncthreads();
+  // sc[t] = cum_prev_t = cum_{t-1}; sc[CHUNK] = L
+  column_cumsum<HS>(sc + LA, LA);
+  __syncthreads();
 
-  // dr and dk of each (step, key channel), and the terms of dlw
+  // dA = dy v^T on the six 16 x 8 tiles at or below the diagonal
+  // sub-chunks (warps 0-5); meanwhile the off-diagonal factors and A's zeros
+  if (warp < 6) {
+    const int mt = warp < 2 ? 0 : 1, nt = warp < 2 ? warp : warp - 2;
+    float acc[1][4];
+    zero(acc);
+    warp_mma<1, true, F32>(
+        acc, mt * SUB, nt * 8, 1, 0, HS,
+        [=](int t, int j) { return sd[t * LA + j]; },
+        [=](int j, int s) { return sv[s * LA + j]; });
+    const int t = mt * SUB + g, s = nt * 8 + 2 * tq;
+    store2(sda + t * LT + s, acc[0][0], acc[0][1]);
+    store2(sda + (t + 8) * LT + s, acc[0][2], acc[0][3]);
+  }
+  // K~_s = k_s e^{cum_prev_b - cum_s} (s < b), R~_t = r_t e^{cum_prev_t -
+  // cum_prev_b} (t >= b), b = SUB: both exponents <= 0
   for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
     const int t = e / HS, i = e % HS;
-    const float cp = sc[t * LD + i], cu = sc[(t + 1) * LD + i];
-    float inter = 0.f, state = 0.f;
-    for (int j = 0; j < HS; ++j) {
-      inter = fmaf(ss[i * LS + j], sd[t * LD + j], inter);
-      state = fmaf(sD[i * LS + j], sv[t * LD + j], state);
-    }
-    inter *= expf(cp);
-    state *= expf(sc[CHUNK * LD + i] - cu);
-    float rin = 0.f, kin = 0.f;
-    for (int s = 0; s < t; ++s)
-      rin = fmaf(sda[t * CHUNK + s] * sk[s * LD + i],
-                 expf(cp - sc[(s + 1) * LD + i]), rin);
-    for (int q = t + 1; q < CHUNK; ++q)
-      kin = fmaf(sda[q * CHUNK + t] * sr[q * LD + i],
-                 expf(sc[q * LD + i] - cu), kin);
-    const float rt = sr[t * LD + i], kt = sk[t * LD + i];
-    const float db = sda[t * CHUNK + t];
-    sx[t * LD + i] = rt * (inter + rin);
-    sy[t * LD + i] = kt * kin;
-    sz[t * LD + i] = kt * state;
-    if (t0 + t < S) {
-      const long long o = ((long long)(b * S + t0 + t) * NH + h) * HS + i;
-      dr[o] = from_f<T>(inter + rin + db * su[i] * kt);
-      dk[o] = from_f<T>(kin + state + db * su[i] * rt);
+    const float cb = sc[SUB * LA + i];
+    if (t < SUB)
+      sq[t * LA + i] = sk[t * LA + i] * expf(cb - sc[(t + 1) * LA + i]);
+    else
+      sq[t * LA + i] = sr[t * LA + i] * expf(sc[t * LA + i] - cb);
+  }
+  for (int e = threadIdx.x; e < CHUNK * CHUNK; e += NTH)
+    sa[(e / CHUNK) * LT + e % CHUNK] = 0.f;
+  __syncthreads();
+
+  // the off-diagonal sub-chunk pairs (t >= SUB, s < SUB) as products, one
+  // 16 x 8 tile a unit: A = R~ K~^T (2 units), dr_in = e^{cum_prev_t -
+  // cum_prev_b} (dA K~) and dk_in = e^{cum_prev_b - cum_s} (dA^T R~) (HS / 8
+  // each). dr_in goes to sp's rows >= SUB and dk_in, for now, to its rows
+  // < SUB, which no product reads.
+  {
+    constexpr int NT8 = HS / 8;
+    for (int x = warp; x < 2 + 2 * NT8; x += NWARP) {
+      float acc[1][4];
+      zero(acc);
+      if (x < 2) {
+        warp_mma<1, true, true>(
+            acc, SUB, x * 8, 1, 0, HS,
+            [=](int t, int i) { return sq[t * LA + i]; },
+            [=](int i, int s) { return sq[s * LA + i]; });
+        const int t = SUB + g, s = x * 8 + 2 * tq;
+        store2(sa + t * LT + s, acc[0][0], acc[0][1]);
+        store2(sa + (t + 8) * LT + s, acc[0][2], acc[0][3]);
+      } else if (x < 2 + NT8) {
+        const int n0 = (x - 2) * 8;
+        warp_mma<1, true, true>(
+            acc, SUB, n0, 1, 0, SUB,
+            [=](int t, int s) { return sda[t * LT + s]; },
+            [=](int s, int i) { return sq[s * LA + i]; });
+        const int i = n0 + 2 * tq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = SUB + g + 8 * half;
+          const float* ct = sc + t * LA + i;
+          const float* cb = sc + SUB * LA + i;
+          store2(sp + t * LA + i, acc[0][2 * half] * expf(ct[0] - cb[0]),
+                 acc[0][2 * half + 1] * expf(ct[1] - cb[1]));
+        }
+      } else {
+        const int n0 = (x - 2 - NT8) * 8;
+        warp_mma<1, true, true>(
+            acc, 0, n0, 1, SUB, CHUNK,
+            [=](int s, int t) { return sda[t * LT + s]; },
+            [=](int t, int i) { return sq[t * LA + i]; });
+        const int i = n0 + 2 * tq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int s = g + 8 * half;
+          const float* cs = sc + (s + 1) * LA + i;
+          const float* cb = sc + SUB * LA + i;
+          store2(sp + s * LA + i, acc[0][2 * half] * expf(cb[0] - cs[0]),
+                 acc[0][2 * half + 1] * expf(cb[1] - cs[1]));
+        }
+      }
     }
   }
-  // dv of each (step, value channel)
-  for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
-    const int t = e / HS, j = e % HS;
-    if (t0 + t >= S) continue;
-    float acc = 0.f;
-    for (int q = t; q < CHUNK; ++q)
-      acc = fmaf(sa[q * CHUNK + t], sd[q * LD + j], acc);
-    for (int i = 0; i < HS; ++i)
-      acc = fmaf(skd[t * LD + i], sD[i * LS + j], acc);
-    const long long o = ((long long)(b * S + t0 + t) * NH + h) * HS + j;
-    dv[o] = from_f<T>(acc);
+  __syncthreads();
+
+  // the diagonal sub-chunks' exact pairs
+  {
+    using D = Diag<HS>;
+    constexpr int R = D::R, RPT = D::RPT, GW = D::GW;
+    const int i = threadIdx.x % HS, col = threadIdx.x / HS;
+    const int p = col % NSUB, q = col / NSUB, grp = i / GW;
+    const int pb = p * SUB;
+    // dk_in's off-diagonal part moves to sq (rows < SUB); sq's other rows
+    // start at zero
+    for (int e = threadIdx.x; e < CHUNK * HS; e += NTH) {
+      const int t = e / HS, ii = e % HS;
+      sq[t * LA + ii] = t < SUB ? sp[t * LA + ii] : 0.f;
+    }
+    float drin[RPT], dkin[SUB], res[D::NB], vals[GW];
+    const float ui = su[i];
+#pragma unroll
+    for (int s = 0; s < SUB; ++s) dkin[s] = 0.f;
+    float rt = 0.f, cpt = 0.f, acc = 0.f;
+    int t = 0, tg = 0;
+    // one flat walk over the positions, every index a constant
+#pragma unroll
+    for (int pos = 0; pos < D::NPOS; ++pos) {
+      const int m = D::row_of(pos), s = pos - R * m * (m + 1) / 2;
+      if (s == 0) {  // a new row: this thread's row q + R m
+        t = q + R * m;
+        tg = pb + t;
+        rt = sr[tg * LA + i];
+        cpt = sc[tg * LA + i];
+        acc = 0.f;
+      }
+      const float ks_ = sk[(pb + s) * LA + i];
+      const float e =
+          s < t ? expf(fminf(cpt - sc[(pb + s + 1) * LA + i], 0.f)) : 0.f;
+      const float da = sda[tg * LT + pb + s];
+      acc = fmaf(da * ks_, e, acc);
+      dkin[s] = fmaf(da * rt, e, dkin[s]);
+      vals[pos % GW] = rt * ks_ * (s == t ? ui : e);
+      if (s == R * (m + 1) - 1) drin[m] = acc;
+      if (pos % GW == GW - 1 || pos == D::NPOS - 1) {
+#pragma unroll
+        for (int z = pos % GW + 1; z < GW; ++z) vals[z] = 0.f;
+        res[pos / GW] = reduce_scatter<GW>(vals);
+      }
+    }
+    __syncthreads();  // sq's rows are in place; every pass above is done
+    // merge in a fixed order: dr_in (owned rows) at once, then the row sets'
+    // dk_in and the channel groups' shares of A, one phase each
+#pragma unroll
+    for (int m = 0; m < RPT; ++m) {
+      const int t = pb + q + R * m;
+      sp[t * LA + i] = (p > 0 ? sp[t * LA + i] : 0.f) + drin[m];
+    }
+    for (int ph = 0; ph < D::NPH; ++ph) {
+      if (q == ph) {
+#pragma unroll
+        for (int s = 0; s < SUB; ++s) sq[(pb + s) * LA + i] += dkin[s];
+      }
+      if (grp == ph) {
+#pragma unroll
+        for (int bt = 0; bt < D::NB; ++bt) {
+          const int pos = bt * GW + lane % GW;
+          const int m = D::row_of(pos);
+          const int s = pos - R * m * (m + 1) / 2, t = q + R * m;
+          if (pos < D::NPOS && s <= t) sa[(pb + t) * LT + pb + s] += res[bt];
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  // dr_inter = e^{cum_prev} (dy S_in^T), dk_state = e^{L - cum}
+  // (v dS_out^T) and dv = A^T dy + (k e^{L - cum}) dS_out: warps tile the
+  // (CHUNK x HS) outputs as 2 row tiles x WN column groups
+  constexpr int NT8 = HS / 8, WN = NWARP / NSUB, NJ = (NT8 + WN - 1) / WN;
+  const int mt = warp / WN, wn = warp % WN;
+  const int nj = min(NJ, NT8 - wn * NJ);
+  const int m0 = mt * SUB, n0 = wn * NJ * 8;
+  float zr[NJ][4];
+  if (nj > 0) {
+    float ar[NJ][4], ak[NJ][4], av[NJ][4];
+    zero(ar);
+    zero(ak);
+    zero(av);
+    warp_mma<NJ, true, true>(
+        ar, m0, n0, nj, 0, HS, [=](int t, int j) { return sd[t * LA + j]; },
+        [=](int j, int i) { return ss[i * LA + j]; });
+    warp_mma<NJ, F32, true>(
+        ak, m0, n0, nj, 0, HS, [=](int s, int j) { return sv[s * LA + j]; },
+        [=](int j, int i) { return sD[i * LA + j]; });
+    warp_mma<NJ, true, true>(
+        av, m0, n0, nj, m0, CHUNK,
+        [=](int s, int t) { return sa[t * LT + s]; },
+        [=](int t, int j) { return sd[t * LA + j]; });
+    const float* cl = sc + CHUNK * LA;
+    warp_mma<NJ, true, true>(
+        av, m0, n0, nj, 0, HS,
+        [=](int s, int i) {
+          return sk[s * LA + i] * expf(cl[i] - sc[(s + 1) * LA + i]);
+        },
+        [=](int i, int j) { return sD[i * LA + j]; });
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
+        const int n = n0 + 8 * j + 2 * tq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = m0 + g + 8 * half;
+          const float db = sda[t * LT + t];
+          float o_r[2], o_k[2];
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            const int i = n + w, x = t * LA + i;
+            const float rt = sr[x], kt = sk[x], bu = db * su[i];
+            const float inter = ar[j][2 * half + w] * expf(sc[x]);
+            const float state =
+                ak[j][2 * half + w] * expf(cl[i] - sc[x + LA]);
+            const float rin = sp[x], kin = sq[x];
+            o_r[w] = fmaf(bu, kt, inter + rin);
+            o_k[w] = fmaf(bu, rt, kin + state);
+            sp[x] = rt * (inter + rin);  // X
+            sq[x] = kt * kin;            // Y
+            zr[j][2 * half + w] = kt * state;  // Z
+          }
+          if (t0 + t < S) {
+            const long long o = ((long long)(b * S + t0 + t) * NH + h) * HS + n;
+            store2(dr + o, o_r[0], o_r[1]);
+            store2(dk + o, o_k[0], o_k[1]);
+            store2(dv + o, av[j][2 * half], av[j][2 * half + 1]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every product has read v
+  if (nj > 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (j < nj) {
+        const int n = n0 + 8 * j + 2 * tq;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = m0 + g + 8 * half;
+          store2(sv + t * LA + n, zr[j][2 * half], zr[j][2 * half + 1]);
+        }
+      }
+    }
   }
   __syncthreads();
 
   // dlw and du's partial, one thread per key channel
   if (threadIdx.x < HS) {
     const int i = threadIdx.x;
-    float zl = 0.f;
-    for (int j = 0; j < HS; ++j) zl = fmaf(ss[i * LS + j], sD[i * LS + j], zl);
-    zl *= expf(sc[CHUNK * LD + i]);
+    float zl = 0.f;  // e^{L} sum_j S_in dS_out, columns rotated by the row
+    for (int jj = 0; jj < HS; ++jj) {
+      const int j = (jj + i) % HS;
+      zl = fmaf(ss[i * LA + j], sD[i * LA + j], zl);
+    }
+    zl *= expf(sc[CHUNK * LA + i]);
     float pre = 0.f, dup = 0.f;  // sum of Z over t < tau; du's partial
     for (int t = 0; t < CHUNK; ++t) {
-      const float z = sz[t * LD + i];
-      sz[t * LD + i] = pre;
+      const float z = sv[t * LA + i];
+      sv[t * LA + i] = pre;
       pre += z;
-      dup = fmaf(sda[t * CHUNK + t] * sr[t * LD + i], sk[t * LD + i], dup);
+      dup = fmaf(sda[t * LT + t] * sr[t * LA + i], sk[t * LA + i], dup);
     }
     du_part[bhc * HS + i] = dup;
     float sxs = 0.f, sys = 0.f;  // sum of X over t > tau, of Y over t >= tau
     for (int t = CHUNK - 1; t >= 0; --t) {
-      sys += sy[t * LD + i];
+      sys += sq[t * LA + i];
       if (t0 + t < S) {
         const long long o = ((long long)(b * S + t0 + t) * NH + h) * HS + i;
-        dlw[o] = sxs - sys + sz[t * LD + i] + zl;
+        dlw[o] = sxs - sys + sv[t * LA + i] + zl;
       }
-      sxs += sx[t * LD + i];
+      sxs += sp[t * LA + i];
     }
   }
 }

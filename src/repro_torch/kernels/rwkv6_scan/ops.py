@@ -205,6 +205,8 @@ def wkv6_bwd(r, k, v, lw, u, s0, states, dy, ds_out):
     if any(t.stride(-1) != 1 for t in (r, k, v, lw, dy)):
         raise ValueError("r, k, v, lw and dy need a unit last stride")
     u, states, ds_out = (t.contiguous() for t in (u, states, ds_out))
+    if states.data_ptr() % 16:       # read as 16-byte copies
+        states = states.clone()
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dv = (torch.empty((B, S, nh, hs), dtype=r.dtype,
                               device=r.device) for _ in range(3))

@@ -11,8 +11,9 @@ step: chunks of ``chunk`` steps cut into sub-chunks of ``sub`` rows, every
 exponent kept <= 0 (no clamp on lw), and, with ``tf32x3``, every matrix
 product rounded as the kernel's 3xTF32 tensor-core products round their
 operands. It is what the CPU tests hold against the JAX model.
-``wkv6_chunked_bwd_ref`` is its reverse, the algorithm of the backward
-kernel (``csrc/rwkv6_scan_bwd.cu``).
+``wkv6_chunked_bwd_ref`` is its reverse; with ``sub=16`` and ``tf32x3``
+it is the algorithm and rounding of the backward kernel
+(``csrc/rwkv6_scan_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -151,12 +152,13 @@ def wkv6_chunked_ref(r, k, v, lw, u, s0=None, *, chunk=32, sub=16,
 
 
 def wkv6_chunked_bwd_ref(r, k, v, lw, u, s0, dy, ds_out, *, chunk=32,
-                         tf32x3=False):
+                         sub=None, tf32x3=False):
     """Gradients of ``wkv6_chunked_ref`` at (r, k, v, lw, u, s0), given
     the gradients ``dy`` (B,S,nh,hs) of y and ``ds_out`` (B,nh,hs,hs) of
     the final state. The algorithm of
-    ``csrc/rwkv6_scan_bwd.cu``, per chunk of ``chunk`` steps (padded with
-    zeros past S), with cum, cum_prev and cum_last as in the forward:
+    ``csrc/rwkv6_scan_bwd.cu`` with ``sub=16``, per chunk of ``chunk``
+    steps (padded with zeros past S), with cum, cum_prev and cum_last as
+    in the forward:
 
     - S_in of each chunk, recomputed by the forward's walk;
     - the chunks walked backwards for the adjoint of each chunk's outgoing
@@ -182,7 +184,18 @@ def wkv6_chunked_bwd_ref(r, k, v, lw, u, s0, dy, ds_out, *, chunk=32,
       only the intra-chunk pairs cancel (X and Y both hold a pair (t, s)
       whose exponent has no step between them at full size).
 
-    With ``tf32x3`` every matrix product is rounded as the forward's
+    ``sub=None`` sums every pair s < t exactly, its E evaluated one by
+    one. With ``sub`` the chunk is cut into sub-chunks of ``sub`` rows,
+    as the forward cuts it: the pairs inside a diagonal sub-chunk stay
+    exact, and for t in sub-chunk p and s before its first row b_p the
+    pairs go through products of the factors R~_t = r_t e^{cum_prev_t -
+    cum_prev_{b_p}} and K~_s = k_s e^{cum_prev_{b_p} - cum_s} (both
+    exponents <= 0): A[t, s] = R~_t . K~_s, dr_in,t = e^{cum_prev_t -
+    cum_prev_{b_p}} (dA[t, <b_p] K~) and dk_in,s = e^{cum_prev_{b_p} -
+    cum_s} (dA[>=b_p, s]^T R~), summed over the later sub-chunks; the
+    bonus sits on A's diagonal for dv.
+
+    With ``tf32x3`` every matrix product is rounded as the kernel's
     tensor-core products round theirs (``tf32x3_matmul``); the sums over
     the E-weighted pairs stay in fp32. Returns (dr, dk, dv in r's dtype,
     dlw, du, ds0 fp32).
@@ -206,24 +219,44 @@ def wkv6_chunked_bwd_ref(r, k, v, lw, u, s0, dy, ds_out, *, chunk=32,
         d = decay[:, :, c, :, None] * d + g[:, :, c]
     d_out = torch.stack(d_out, dim=2)                       # (B,nh,nc,hs,hs)
 
-    # the intra-chunk pairs s < t, exactly
-    lower = torch.tril(torch.ones((C, C), dtype=torch.bool,
-                                  device=r.device), diagonal=-1)
+    # the intra-chunk pairs s < t computed exactly: all of them, or those
+    # of the diagonal sub-chunks
+    idx = torch.arange(C, device=r.device)
+    exact = idx[:, None] > idx[None, :]
+    if sub is not None:
+        if C % sub:
+            raise ValueError(f"sub={sub} must divide chunk={C}")
+        exact &= (idx[:, None] // sub) == (idx[None, :] // sub)
     expo = cum_prev[..., :, None, :] - cum[..., None, :, :]
-    e = torch.exp(torch.clamp(expo, max=0.0)) * lower[:, :, None]
+    e = torch.exp(torch.clamp(expo, max=0.0)) * exact[:, :, None]
     a = (rc[..., :, None, :] * kc[..., None, :, :] * e).sum(-1)
     da = mm(dyc, vc.transpose(-1, -2))                      # dy_t . v_s
     dbonus = torch.diagonal(da, dim1=-2, dim2=-1)[..., None]
     uf = u.float()[None, :, None, None, :]
     bonus = (rc * uf * kc).sum(-1, keepdim=True)
-    dal = (da * lower)[..., None]
+    dal = (da * exact)[..., None]
     dr_in = (dal * e * kc[..., None, :, :]).sum(-2)
     dk_in = (dal * e * rc[..., :, None, :]).sum(-3)
+    for p in range(1, C // sub if sub is not None else 1):
+        b0 = p * sub
+        rows = slice(b0, b0 + sub)
+        ref = cum_prev[..., b0:b0 + 1, :]
+        f_r = torch.exp(cum_prev[..., rows, :] - ref)
+        f_k = torch.exp(ref - cum[..., :b0, :])
+        r_loc, k_loc = rc[..., rows, :] * f_r, kc[..., :b0, :] * f_k
+        da_off = da[..., rows, :b0]
+        a[..., rows, :b0] = mm(r_loc, k_loc.transpose(-1, -2))
+        dr_in[..., rows, :] += f_r * mm(da_off, k_loc)
+        dk_in[..., :b0, :] += f_k * mm(da_off.transpose(-1, -2), r_loc)
     dr_inter = e_prev * mm(dyc, s_in.transpose(-1, -2))
     k_exp = torch.exp(cum_last - cum)
     dk_state = k_exp * mm(vc, d_out.transpose(-1, -2))
-    dv = (mm(a.transpose(-1, -2), dyc) + bonus * dyc
-          + mm(kc * k_exp, d_out))
+    if sub is None:
+        dv = mm(a.transpose(-1, -2), dyc) + bonus * dyc
+    else:
+        a = a + torch.diag_embed(bonus[..., 0])
+        dv = mm(a.transpose(-1, -2), dyc)
+    dv = dv + mm(kc * k_exp, d_out)
     dr = dr_inter + dr_in + dbonus * uf * kc
     dk = dk_in + dk_state + dbonus * uf * rc
     du = (dbonus * rc * kc).sum((0, 2, 3))

@@ -1056,17 +1056,23 @@ def test_kernels_without_a_backward_refuse_grad_on_cuda(cuda):
 
 
 # K3's gated backward: (B, S, W, extreme gates) at the smoke width, a
-# ragged width, S = 1, S no multiple of the 32 chunks and longer than 8 of
-# them, recurrentgemma-2b's width; ``extreme`` pushes some gates to
-# a -> 1, where mult reaches the clamp
+# ragged width (odd: one bf16 channel a thread), S = 1 and 7, S no
+# multiple of the chunks and past the steps kept in registers (a chunk in
+# segments, ga and dh read twice), recurrentgemma-2b's width at S = 256
+# and 2100, grids under one wave of the card (B = 1 at W = 64); ``extreme``
+# pushes some gates to a -> 1, where mult reaches the clamp
 RGLRU_BWD_SWEEP = [(2, 24, 64, False), (3, 17, 100, False),
                    (2, 1, 64, False), (1, 33, 2560, False),
                    (2, 300, 256, False), (1, 2100, 512, False),
-                   (2, 64, 256, True)]
-# K4's backward: (B, NH, S, hs): every head size, S = 1, a partial chunk,
-# rwkv6-3b's heads
+                   (2, 64, 256, True), (1, 7, 64, False), (1, 7, 63, True),
+                   (1, 256, 2560, False), (2, 256, 2560, True),
+                   (1, 2100, 2560, False), (1, 256, 64, False)]
+# K4's backward: (B, NH, S, hs): every head size at S = 1, 16, 33 and 256,
+# a partial chunk, rwkv6-3b's heads
 WKV_BWD_SWEEP = [(2, 3, 70, 16), (1, 2, 64, 32), (2, 1, 33, 8),
-                 (1, 2, 1, 64), (1, 40, 100, 64)]
+                 (1, 2, 1, 64), (1, 40, 100, 64)] + [
+                     (2, 3, S, hs) for hs in (8, 16, 32, 64)
+                     for S in (1, 16, 33, 256)]
 
 
 def _close(got, ref, rtol):
@@ -1106,10 +1112,11 @@ def test_rglru_gated_bwd_matches_plain_on_cuda(cuda, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wkv6_bwd_matches_plain_on_cuda(cuda, dtype):
     """K4's backward kernels against ``wkv6_chunked_bwd_ref`` on the same
-    inputs, from the states the forward kept (either route), lw spread to
-    -3 and down to -20, a carried s0 and nonzero dy and ds_out; two runs
-    bit-equal (no atomics). dlw within 1e-3 of its largest |reference| in
-    f32 (the pairs' terms cancel in it)."""
+    inputs, its algorithm (``sub=16``, 3xTF32 rounding) and every pair
+    exact (``sub=None``), from the states the forward kept (either
+    route), lw spread to -3 and down to -20, a carried s0 and nonzero dy
+    and ds_out; two runs bit-equal (no atomics). dlw within 1e-3 of its
+    largest |reference| in f32 (the pairs' terms cancel in it)."""
     from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked_bwd_ref
     dt = TDT[dtype]
     r = np.random.default_rng(24)
@@ -1124,10 +1131,12 @@ def test_wkv6_bwd_matches_plain_on_cuda(cuda, dtype):
         again = wkv_ops.wkv6_bwd(*rkv, lw, u, s0, states, dy, ds_out)
         assert wkv_ops.BWD_LAUNCHES == 2
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-        ref = wkv6_chunked_bwd_ref(*rkv, lw, u, s0, dy, ds_out)
         rtol = BWD_RTOL[dtype]
-        _close(got[:3] + got[4:], ref[:3] + ref[4:], rtol)
-        _close(got[3:4], ref[3:4], max(rtol, 1e-3))
+        for sub, tf32x3 in ((16, True), (None, False)):
+            ref = wkv6_chunked_bwd_ref(*rkv, lw, u, s0, dy, ds_out, sub=sub,
+                                       tf32x3=tf32x3)
+            _close(got[:3] + got[4:], ref[:3] + ref[4:], rtol)
+            _close(got[3:4], ref[3:4], max(rtol, 1e-3))
     torch.cuda.synchronize()
 
 
