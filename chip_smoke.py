@@ -227,6 +227,39 @@ and prints no result):
    qwen2.5-3b and of rwkv6-3b crashed at step 6 and resumed: its losses
    bit-equal to one uninterrupted run's, the last checkpoint restored on
    the CPU bit-equal to the card's.
+9. launch and layout: (a) ``make_local_mesh()``, a (1, 1) ("data",
+   "model") ``DeviceMesh`` over cuda:0 with a process group of one (NCCL
+   over a ``HashStore``), ``current_mesh()`` it inside ``with`` and None
+   outside; (b) the elastic restore on the card: qwen2.5-3b's full-width
+   bf16 params as the worker draws them, saved and restored through
+   ``shardings=param_shardings(param_shapes(cfg), mesh, serving=True)``,
+   every local shard bit-equal to the saved leaf, and an engine on
+   ``local_tree`` of them giving the greedy tokens of an engine on the
+   params never saved for phase 4's first prompt (K1, K2 launched,
+   counted); then phase 8 (d)'s crash and resume of rwkv6-3b with the
+   resume's restore through ``shardings=`` on the mesh, its losses
+   bit-equal to the uninterrupted run's (K4 and K4's backward launched,
+   counted); (c) the dry run's accounting held against the card, for
+   qwen2.5-3b's published config on the mesh at shapes cut from SHAPES
+   (``LAYOUT_CELLS``: a prefill at B=1 S=4096, a decode step at B=32
+   against a 4096 cache, a train step at B=2 S=1024): ``lower_cell``'s
+   per-device argument bytes equal to the caching allocator's growth in
+   requested bytes when the same params (drawn), AdamW state or cache,
+   and batch are placed on the card, and ``torch.cuda.memory_allocated``'s
+   growth above them within the allocator's rounding (512 bytes a block,
+   and up to 1 MiB more for a block over 1 MiB, whose segment's rest is
+   not split off); the real step's
+   time (CUDA events around the eager call, median of 10) at or above
+   max(model flops / 989 TFLOP/s, argument bytes / 3.35 TB/s), printed
+   beside the trace's compute and memory terms and useful_flop_frac; and
+   the step's own peak (``max_memory_allocated`` over the run less
+   ``memory_allocated`` just before it) at or under the record's
+   ``temp_bytes``, the bound it claims; (d) ``python -m
+   repro_torch.launch.dryrun --all --no-save``, started in the background
+   at the lowest CPU priority after (c), so that (c)'s times are taken on
+   a quiet host, and run beside (b), must end with "33 ok, 0 failed, 7
+   skipped"; each cell's line is printed. The order is (a), (c), (b),
+   (d).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel (the backward kernels as ``flash_attention_bwd``,
@@ -242,8 +275,10 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -3615,12 +3650,14 @@ def phase_train_full(arch):
     return out, launches
 
 
-def phase_train_resume(arch):
+def phase_train_resume(arch, mesh=None):
     """Phase 8 (d): ``train(arch=arch, scale="20m")`` crashes at step 6 (a
     checkpoint at step 4), resumes, and its losses are bit-equal to one
     uninterrupted run's; the last checkpoint restores on the CPU as on
     the card, bit for bit. Counters zeroed before the three runs, read
-    after: the arch's forward and backward kernels launched."""
+    after: the arch's forward and backward kernels launched. With
+    ``mesh`` (phase 9 (b)) the resume restores through ``shardings=``
+    onto that mesh."""
     from repro_torch import configs
     from repro_torch.device import generator_for
     from repro_torch.launch.train import scale_config, train
@@ -3637,7 +3674,8 @@ def phase_train_resume(arch):
         reset_counts()
         crashed = train(**kw, ckpt_dir=str(root / "a"),
                         simulate_failure_at=TRAIN_CRASH_AT)
-        resumed = train(**kw, ckpt_dir=str(root / "a"), resume=True)
+        resumed = train(**kw, ckpt_dir=str(root / "a"), resume=True,
+                        mesh=mesh)
         whole = train(**kw, ckpt_dir=str(root / "b"))
         launches = read_counts(TRAIN_ROUTES)
         ckpt = root / "a" / f"{arch}-{kw['scale']}"
@@ -4199,6 +4237,353 @@ def phase_testbed_shard():
             {k: n_auto[k] + n_mono[k] for k in n_auto})
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: launch and layout — the local mesh, the elastic restore on the
+# card, the dry run's accounting held against the card, the full-size sweep
+# ---------------------------------------------------------------------------
+
+LAYOUT_ARCH = "qwen2.5-3b"
+LAYOUT_RESUME_ARCH = "rwkv6-3b"
+# (c): qwen2.5-3b's published config on the (1, 1) mesh, at shapes cut
+# from SHAPES to fit one card: prefill_32k's B 32 -> 1 and S 32768 ->
+# 4096, decode_32k's B 128 -> 32 and cache 32768 -> 4096, train_4k's B
+# 256 -> 2 and S 4096 -> 1024 (at S 2048 the step peaks at 66 GiB alone
+# and ran out of the card's memory after phases 4-8 had fragmented the
+# caching allocator)
+LAYOUT_CELLS = (("prefill_32k", "prefill", 4096, 1),
+                ("decode_32k", "decode", 4096, 32),
+                ("train_4k", "train", 1024, 2))
+LAYOUT_TIMED = 10                  # step timings, median of
+ALLOC_ROUND = 512                  # the caching allocator's block rounding
+DRYRUN_SUMMARY = "dry-run summary: 33 ok, 0 failed, 7 skipped"
+DRYRUN_WAIT_S = 400                # (d) waits at most this long after (b)
+
+
+def start_dryrun():
+    """Phase 9 (d)'s sweep, ``python -m repro_torch.launch.dryrun --all
+    --no-save`` (33 cells of meta traces, a process a host core), started
+    in the background at the lowest CPU priority so that it runs beside
+    (b), which keeps the card and the disk busy."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    return subprocess.Popen(
+        ["nice", "-n", "19", sys.executable, "-m", "repro_torch.launch.dryrun",
+         "--all", "--no-save"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+
+
+def stop_dryrun(proc):
+    """Kill the sweep and its worker processes (its session)."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.communicate()
+
+
+def phase_local_mesh():
+    """(a): ``make_local_mesh()`` is a (1, 1) ("data", "model") mesh over
+    cuda:0 with its process group of one; ``current_mesh()`` returns it
+    inside ``with`` and None outside."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as SH
+    mesh = make_local_mesh()
+    if not (mesh.device_type == "cuda"
+            and tuple(mesh.mesh_dim_names) == ("data", "model")
+            and tuple(mesh.mesh.shape) == (1, 1)
+            and dist.get_world_size() == 1 and dist.get_backend() == "nccl"):
+        raise AssertionError(f"the local mesh is {mesh}, backend "
+                             f"{dist.get_backend()}")
+    if SH.current_mesh() is not None:
+        raise AssertionError("a mesh is current outside every scope")
+    with mesh:
+        inside = SH.current_mesh()
+    if inside is not mesh or SH.current_mesh() is not None:
+        raise AssertionError(f"current_mesh gave {inside} inside the "
+                             "local mesh's scope")
+    log(f"  (a) {mesh}: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}; current_mesh() is it inside with, None "
+        "outside")
+    return mesh
+
+
+def phase_layout_restore(mesh):
+    """(b): qwen2.5-3b's full-width bf16 params as the worker draws them,
+    saved, restored through ``shardings=param_shardings(param_shapes(cfg),
+    mesh, serving=True)``: each local shard bit-equal to the saved leaf,
+    and an engine on ``local_tree`` of them gives the greedy tokens of an
+    engine on the params never saved, for phase 4's first prompt (K1, K2
+    launched, counted). Then phase 8 (d)'s crash and resume of rwkv6-3b
+    with the resume's restore through ``shardings=`` on the mesh. Returns
+    the launches by path."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs
+    from repro_torch.core.variants import Application, build_ladder
+    from repro_torch.models import model as MDL
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.serving.engine import InferenceEngine, Request
+    from repro_torch.serving.server import draw_params
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.tree import tree_leaves
+
+    cfg = configs.get_config(LAYOUT_ARCH)
+    app = Application(id=f"{LAYOUT_ARCH}/app0", family=cfg.name,
+                      variants=build_ladder(cfg))
+    params = draw_params(app.full, DEV)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 257, SLOTS)
+    prompt = rng.integers(0, cfg.vocab_size, lens[0]).astype(np.int32)
+    root = ROOT / "build" / "phase9_checkpoint"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.monotonic()
+        CKPT.save_checkpoint(root, 0, params)
+        t_save = time.monotonic() - t0
+        tmpl = MDL.param_shapes(app.full.config)
+        t0 = time.monotonic()
+        _, restored, _, _ = CKPT.restore_checkpoint(
+            root, 0, tmpl, shardings=SH.param_shardings(tmpl, mesh,
+                                                        serving=True))
+        torch.cuda.synchronize()
+        t_restore = time.monotonic() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    leaves = tree_leaves(restored)
+    if not all(isinstance(t, DTensor) and t.device_mesh is mesh
+               for t in leaves):
+        raise AssertionError("a restored leaf is not a DTensor on the mesh")
+    same = sum(torch.equal(a, b.to_local())
+               for a, b in zip(tree_leaves(params), leaves))
+    if same != len(leaves):
+        raise AssertionError(f"{len(leaves) - same} of {len(leaves)} "
+                             "restored leaves differ from the saved ones")
+
+    def tokens(p):
+        eng = InferenceEngine(app.full.config, p, batch_slots=SLOTS,
+                              max_len=MAX_LEN, device=DEV)
+        r = Request(id="r", prompt=prompt, max_new_tokens=NEW_TOKENS)
+        if not eng.try_admit(r):
+            raise AssertionError("an engine refused a request")
+        while eng.active_count():
+            eng.step()
+        return r.tokens
+
+    reset_counts()
+    want = tokens(params)
+    got = tokens(CKPT.local_tree(restored))
+    launches = read_counts(("flash_attention", "decode_attention"))
+    if got != want or len(got) != NEW_TOKENS + 1:
+        raise AssertionError(f"the restored engine's tokens {got} are not "
+                             f"the original's {want}")
+    idle = [k for k, n in launches.items() if not n]
+    if idle:
+        raise AssertionError(f"(b)'s engines launched {launches}: {idle} "
+                             "idle")
+    log(f"  (b) {LAYOUT_ARCH} full width bf16: {len(leaves)} leaves saved in "
+        f"{t_save:.3f} s, restored through shardings= onto {mesh} in "
+        f"{t_restore:.3f} s, every local shard bit-equal; greedy tokens "
+        f"equal ({len(got)}) for a {len(prompt)}-token prompt; launches "
+        f"{json.dumps(launches)}")
+    del params, restored, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, resume = phase_train_resume(LAYOUT_RESUME_ARCH, mesh=mesh)
+    paths = {k: {f"restored {LAYOUT_ARCH} engine (phase 9b)": n}
+             for k, n in launches.items()}
+    for k, n in resume.items():
+        if n:
+            paths.setdefault(k, {})[
+                f"train() {LAYOUT_RESUME_ARCH} resume onto the mesh "
+                "(phase 9b)"] = n
+    return paths
+
+
+def placed_bytes(make):
+    """The caching allocator's growth over ``make()``: (bytes allocated,
+    bytes requested, what ``make`` made)."""
+    def now():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+    a0, r0 = now()
+    out = make()
+    a1, r1 = now()
+    return a1 - a0, r1 - r0, out
+
+
+def alloc_slack(tensors):
+    """How far ``memory_allocated`` may exceed the requested bytes: each
+    block is rounded up to ``ALLOC_ROUND`` bytes, and a block over 1 MiB
+    keeps the rest of its segment when that rest is 1 MiB or less (the
+    allocator splits a large block only above that)."""
+    return sum(ALLOC_ROUND + (2**20 if t.numel() * t.element_size() > 2**20
+                              else 0) for t in tensors)
+
+
+def phase_layout_accounting(mesh):
+    """(c): for each of ``LAYOUT_CELLS``, ``lower_cell`` on the mesh, its
+    per-device argument bytes against the allocator's growth when the same
+    params (drawn on the card), AdamW state or cache, and batch are placed
+    (requested bytes equal, allocated within ``alloc_slack``), and the real step's time (CUDA events
+    around the eager call, median of ``LAYOUT_TIMED``) against
+    max(model flops / PEAK_FLOPS, argument bytes / HBM_BW), and the step's
+    own peak bytes (the allocator's peak over the timed runs less what was
+    allocated just before them) against the record's ``temp_bytes``, which
+    claims to bound it. Returns the rows and the steps' launches."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.device import generator_for
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import hlo_analysis as H
+    from repro_torch.models import model as MDL
+    from repro_torch.training.optimizer import AdamW
+
+    cfg = configs.get_config(LAYOUT_ARCH)
+    rows, launches = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, kind, seq, batch in LAYOUT_CELLS:
+        cell = ShapeCell(name, kind, seq, batch)
+        tag = f"{name} cut to B={batch} S={seq}"
+        t0 = time.monotonic()
+        rec = D.lower_cell(LAYOUT_ARCH, cell, mesh)
+        t_dry = time.monotonic() - t0
+        want = rec["memory"]["argument_bytes"]
+        opt = AdamW()
+        held = []
+
+        def make(cell=cell, opt=opt):
+            p = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+            st = (opt.init(p) if cell.kind == "train" else
+                  MDL.init_cache(cfg, cell.global_batch, cell.seq_len,
+                                 device=DEV))
+            g = torch.Generator(device=DEV).manual_seed(SEED)
+            shape = ((cell.global_batch,) if cell.kind == "decode" else
+                     (cell.global_batch, cell.seq_len))
+            b = {k: torch.randint(0, cfg.vocab_size, shape, generator=g,
+                                  device=DEV, dtype=torch.int32)
+                 for k in (("tokens", "labels") if cell.kind == "train"
+                           else ("tokens",))}
+            held.extend(D._leaves((p, st, b)))
+            return p, st, b
+
+        grown, asked, (params, state, batch_) = placed_bytes(make)
+        n_t, slack = len(held), alloc_slack(held)
+        if asked != want or not 0 <= grown - want <= slack:
+            raise AssertionError(f"{tag}: {asked} bytes requested and "
+                                 f"{grown} allocated for {n_t} tensors "
+                                 f"(slack {slack}), the dry run reckons "
+                                 f"{want}")
+        step = D._cell_step(cfg, cell, opt, 1)
+        if kind == "train":
+            def run():
+                step(params, state, batch_)
+        elif kind == "prefill":
+            def run():
+                state["pos"].zero_()
+                step(params, state, batch_)
+        else:
+            def run():
+                state["pos"].fill_(seq - 2 * (LAYOUT_TIMED + 2))
+                step(params, state, batch_)
+        reset_counts()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(kind != "train"):
+            ms = eager_ms(run, n=LAYOUT_TIMED, warmup=2)
+        step_peak = torch.cuda.max_memory_allocated() - before
+        temp = rec["memory"]["temp_bytes"]
+        launches[tag] = read_counts(("flash_attention", "decode_attention",
+                                     "flash_attention_bwd"))
+        r = rec["roofline"]
+        floor_s = max(r["model_flops"] / H.PEAK_FLOPS, want / H.HBM_BW)
+        row = {"argument_bytes": want, "requested_growth": asked,
+               "allocated_growth": grown, "allocator_slack": slack,
+               "tensors": n_t, "temp_bytes": temp,
+               "step_peak_bytes": step_peak, "measured_ms": ms,
+               "floor_ms": floor_s * 1e3, "compute_ms": r["compute_s"] * 1e3,
+               "memory_ms": r["memory_s"] * 1e3,
+               "useful_flop_frac": r["useful_flop_frac"],
+               "global_flops": rec["cost"]["global_flops"],
+               "global_bytes": rec["cost"]["global_bytes"],
+               "dry_run_s": t_dry}
+        rows[tag] = row
+        log(f"  (c) {tag}: argument bytes {want} reckoned, {asked} "
+            f"requested, {grown} allocated ({n_t} tensors, +{grown - want} "
+            f"of the allocator's {slack}); step "
+            f"{ms:.3f} ms measured against the floor "
+            f"{floor_s * 1e3:.3f} ms (model flops / peak, argument bytes "
+            f"/ HBM), the trace's compute_s {r['compute_s'] * 1e3:.3f} ms "
+            f"and memory_s {r['memory_s'] * 1e3:.3f} ms (unfused), "
+            f"useful_flop_frac {r['useful_flop_frac']:.3f}; the step's "
+            f"own peak {step_peak} bytes against temp_bytes {temp}; dry run "
+            f"{t_dry:.1f} s; launches {json.dumps(launches[tag])}")
+        if ms < floor_s * 1e3:
+            raise AssertionError(f"{tag}: the step took {ms:.3f} ms, under "
+                                 f"its floor {floor_s * 1e3:.3f} ms: the "
+                                 "roofline is miscounted")
+        if step_peak > temp:
+            raise AssertionError(f"{tag}: the step's own peak {step_peak} "
+                                 f"bytes exceeds temp_bytes {temp}, which "
+                                 "claims to bound it")
+        if not launches[tag]["flash_attention" if kind != "decode"
+                             else "decode_attention"]:
+            raise AssertionError(f"{tag}: no attention kernel launched")
+        del params, state, batch_, held, run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_layout_dryrun(proc):
+    """(d): the sweep started by ``start_dryrun`` must end with rc 0 and
+    ``DRYRUN_SUMMARY``; each cell's line is logged."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        stop_dryrun(proc)
+        raise AssertionError(f"the dry run did not end within "
+                             f"{DRYRUN_WAIT_S} s of (b)")
+    for line in out.splitlines():
+        if line.strip():
+            log(f"  (d) {line}")
+    if proc.returncode != 0 or DRYRUN_SUMMARY not in out:
+        raise AssertionError(f"the dry run exited {proc.returncode} without "
+                             f"'{DRYRUN_SUMMARY}'")
+
+
+def phase_layout():
+    """Phase 9: (a) and (c) on a quiet host, then (d)'s sweep started in
+    the background beside (b). Returns (c)'s rows and the launches by
+    kernel and path."""
+    import torch.distributed as dist
+    t0 = time.monotonic()
+    mesh = phase_local_mesh()
+    log(f"  phase 9 (a) took {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    rows, steps = phase_layout_accounting(mesh)
+    log(f"  phase 9 (c) took {time.monotonic() - t0:.1f} s")
+    dryrun = start_dryrun()
+    try:
+        t0 = time.monotonic()
+        paths = phase_layout_restore(mesh)
+        log(f"  phase 9 (b) took {time.monotonic() - t0:.1f} s, beside the "
+            "sweep")
+        for tag, n in steps.items():
+            for k, v in n.items():
+                if v:
+                    paths.setdefault(k, {})[
+                        f"{LAYOUT_ARCH} {tag} (phase 9c)"] = v
+        dist.destroy_process_group()
+        t0 = time.monotonic()
+        phase_layout_dryrun(dryrun)
+        log(f"  phase 9 (d) waited {time.monotonic() - t0:.1f} s for the "
+            "sweep")
+    finally:
+        stop_dryrun(dryrun)
+    return rows, paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4300,6 +4685,12 @@ def main() -> int:
     rows.update(train_rows)
     log(f"  phase 8 took {time.monotonic() - t0:.1f} s")
 
+    log("phase 9: launch and layout on the card")
+    t0 = time.monotonic()
+    layout_rows, layout_paths = phase_layout()
+    log("  " + json.dumps({"layout": layout_rows}))
+    log(f"  phase 9 took {time.monotonic() - t0:.1f} s")
+
     kernels = []
     for name, (_pkg, src, replaces, headline) in KERNELS.items():
         r = rows[name][headline]
@@ -4311,6 +4702,7 @@ def main() -> int:
             by_path = {ARGMAX_PATH: argmax_launches}
         elif name in TRAINING_ONLY:
             by_path = dict(train_paths[name])
+            by_path.update(layout_paths.get(name, {}))
         else:
             by_path = {f"{arch}:{tag}": n[name]
                        for arch, runs in launches.items()
@@ -4329,6 +4721,7 @@ def main() -> int:
                 by_path["testbed TP shard (phase 6d)"] = tb_shard[name]
             by_path.update(plane_paths.get(name, {}))
             by_path.update(train_paths.get(name, {}))
+            by_path.update(layout_paths.get(name, {}))
         main_path = sum(by_path.values())
         if not main_path:
             raise AssertionError(f"{name} was never launched on the main "

@@ -27,6 +27,8 @@ def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    if hasattr(t, "full_tensor"):           # a DTensor: the whole leaf
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -48,5 +50,6 @@ def params_from_jax(tree: Any, device: DeviceLike = None) -> Any:
 
 
 def params_to_numpy(tree: Any) -> Any:
-    """Torch tree -> numpy tree; bfloat16 leaves come back as float32."""
+    """Torch tree -> numpy tree; bfloat16 leaves come back as float32, a
+    DTensor leaf whole (``full_tensor``, a collective on its mesh)."""
     return _map(_leaf_to_numpy, tree)

@@ -14,7 +14,8 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``cuda`` by default; ``cpu`` only when asked for.
+    """``cuda`` by default; ``cpu``, or ``meta`` (shapes and dtypes, no
+    memory: the dry run's accounting), only when asked for.
 
     Raises RuntimeError when CUDA is wanted (explicitly or by default)
     and no CUDA device is present.
@@ -24,7 +25,7 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "repro_torch runs on a CUDA device and none is available; "
             "pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -21,11 +21,13 @@ from pathlib import Path
 
 from repro_torch import configs
 from repro_torch.device import DeviceLike, generator_for, resolve_device
+from repro_torch.launch.mesh import mesh_name
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import model as MDL
+from repro_torch.parallel import sharding as SH
 from repro_torch.training import checkpoint as CKPT
 from repro_torch.training.data import DataConfig, SyntheticTokenStream
-from repro_torch.training.optimizer import AdamW
+from repro_torch.training.optimizer import AdamW, state_shardings
 
 
 def scale_config(cfg, scale: str):
@@ -59,7 +61,11 @@ def train(arch: str = "qwen2.5-3b", scale: str = "100m", steps: int = 300,
           ckpt_dir: str = "checkpoints", resume: bool = False,
           straggler_deadline_s: float = 300.0,
           simulate_failure_at: int = -1, log_every: int = 10,
-          seed: int = 0, device: DeviceLike = None):
+          seed: int = 0, device: DeviceLike = None, mesh=None):
+    """Train; ``mesh`` (a one-rank ``DeviceMesh`` on ``device``) makes a
+    resume the elastic restore: the checkpoint comes back through
+    ``shardings=`` (params and AdamW state in ``param_shardings``' layout
+    on the mesh) and the steps take its local shards."""
     dev = resolve_device(device)
     cfg = scale_config(configs.get_config(arch), scale)
     print(f"arch={arch} scale={scale}: {cfg.param_count()/1e6:.1f}M params")
@@ -73,15 +79,23 @@ def train(arch: str = "qwen2.5-3b", scale: str = "100m", steps: int = 300,
 
     start = 0
     params = opt_state = None
-    if resume:
-        last = CKPT.latest_step(ckpt_path)
-        if last is not None:
-            tmpl_p = MDL.init_params(generator_for(dev, seed), cfg,
-                                     device=dev)
-            tmpl_o = opt.state_shapes(tmpl_p)
-            start, params, opt_state, _ = CKPT.restore_checkpoint(
-                ckpt_path, last, tmpl_p, tmpl_o, device=dev)
-            print(f"resumed from step {start}")
+    if mesh is not None and mesh.size() > 1:
+        raise ValueError(f"train() steps on one device; mesh "
+                         f"{mesh_name(mesh)} has {mesh.size()} ranks")
+    if resume and (last := CKPT.latest_step(ckpt_path)) is not None:
+        tmpl_p = MDL.param_shapes(cfg)
+        tmpl_o = opt.state_shapes(tmpl_p)
+        start, params, opt_state, _ = CKPT.restore_checkpoint(
+            ckpt_path, last, tmpl_p, tmpl_o, device=dev,
+            shardings=(SH.param_shardings(tmpl_p, mesh)
+                       if mesh is not None else None),
+            opt_shardings=(state_shardings(tmpl_o, mesh)
+                           if mesh is not None else None))
+        params, opt_state = (CKPT.local_tree(params),
+                             CKPT.local_tree(opt_state))
+        print(f"resumed from step {start}"
+              + (f" onto mesh {mesh_name(mesh)}" if mesh is not None
+                 else ""))
     if params is None:
         params = MDL.init_params(generator_for(dev, seed), cfg, device=dev)
         opt_state = opt.init(params)

@@ -179,11 +179,20 @@ def init_cache(cfg, batch, max_len, dev) -> Dict[str, Any]:
 
 def prefill(params, cfg, tokens, cache, frame_embeds):
     """Encode the frames, write each layer's cross K/V and the prompt's
-    self K/V (from slot 0) into ``cache`` in place. Returns (last-token
-    logits, cache)."""
+    self K/V (from slot 0) into ``cache`` in place (the cross buffers
+    replaced by ones of the frames' length when that is not the cache's).
+    Returns (last-token logits, cache)."""
     if frame_embeds is None:
         raise ValueError("an encoder-decoder prefill needs frame_embeds")
     enc_out = encode(params, cfg, frame_embeds)
+    cross = cache["cross"]
+    if cross["k"].shape[2] != enc_out.shape[1]:
+        # frames other than the config's: the cross cache takes their
+        # length, as the JAX prefill's new cache does
+        for name in ("k", "v"):
+            t = cross[name]
+            cross[name] = t.new_zeros(t.shape[:2] + (enc_out.shape[1],)
+                                      + t.shape[3:])
     x = L.embed(params["embed"], tokens).to(cfg.adtype)
     S = x.shape[1]
     positions = cache["pos"][:, None] + torch.arange(S, device=x.device)

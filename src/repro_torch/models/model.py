@@ -116,6 +116,8 @@ def init_stacked(generator: torch.Generator, init_one: Callable[[], Any],
     stacked = _tree_map(lambda t: torch.empty((n,) + tuple(t.shape),
                                               dtype=t.dtype, device=dev),
                         template)
+    if torch.device(dev).type == "meta":      # shapes only: nothing to draw
+        return stacked
     where = {}
     _tree_map(lambda t, s: where.__setitem__(id(t), s), template, stacked)
     dests = [where[id(t)] for t in calls]     # the stack of each draw
@@ -155,9 +157,10 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     """Random params drawn on ``device`` from ``generator`` (which must
     draw on that device). Layer by layer, each stacked layer drawn into
     its slice of the stack (``init_stacked``), so the device never holds
-    more than the params and one weight's fp32 scratch."""
+    more than the params and one weight's fp32 scratch. On ``meta`` nothing
+    is drawn (``param_shapes``)."""
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
+    if dev.type != "meta" and generator.device.type != dev.type:
         raise ValueError(f"generator draws on {generator.device}, params "
                          f"go to {dev}")
     if cfg.is_encoder_decoder:
@@ -185,6 +188,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
         p["unembed"] = L.init_embedding(generator, cfg.vocab_size,
                                         cfg.d_model, cfg.pdtype, dev)
     return p
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``' tree as meta tensors: the shapes and dtypes of the
+    JAX ``param_shapes``, with nothing drawn or allocated (the dry run's
+    templates)."""
+    return init_params(torch.Generator(), cfg, device="meta")
 
 
 def unstack(tree, n: int) -> List[Any]:

@@ -10,7 +10,10 @@ route ``kernels.rglru_scan.ops.rglru_gated_scan`` (one kernel on a CUDA
 tensor, a and b never in memory; ``_gates`` followed by the sequential
 scan on a CPU tensor), for the prefill and the decode step alike; on a
 CUDA tensor that autograd records, through ``RGLRUGatedScanFn`` (the same
-kernel, then K3's backward kernel). A state
+kernel, then K3's backward kernel). On a meta tensor (the dry run's
+trace: shapes only) it runs the gated route's chunked algorithm in plain
+form, ``_gates`` then ``rglru_scan_chunked_ref``, whose loops are over a
+chunk's steps and the chunks rather than over every step. A state
 passed in is updated in place (``h`` by the scan itself, ``conv`` by a
 copy) and returned; the JAX functions return a new state instead.
 """
@@ -23,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan import ops as rglru_ops
-from repro_torch.kernels.rglru_scan.ref import RGLRU_C, rglru_gates_ref
+from repro_torch.kernels.rglru_scan.ref import (RGLRU_C, rglru_gates_ref,
+                                                rglru_scan_chunked_ref)
 from repro_torch.models.layers import _he
 
 
@@ -95,6 +99,10 @@ def rglru_scan(params, cfg, xb, h0=None, *, h_last=None):
             raise ValueError("under autograd the scan updates no state in "
                              "place")
         return rglru_ops.RGLRUGatedScanFn.apply(ga, gx, xb, lam, h0)
+    if xb.device.type == "meta":
+        h, last = rglru_scan_chunked_ref(*rglru_gates_ref(ga, gx, xb, lam),
+                                         h0)
+        return h, (last if h_last is None else h_last.copy_(last))
     return rglru_ops.rglru_gated_scan(ga, gx, xb, lam, h0, h_last=h_last)
 
 

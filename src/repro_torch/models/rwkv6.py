@@ -13,8 +13,11 @@ with the log-decay as the model computes it (no clamp); under autograd
 through ``WKV6Fn`` (the same kernels, then K4's backward kernels). On a
 CPU tensor
 it runs the ports of the JAX model's two forms, ``wkv_chunked`` (prefill)
-and ``wkv_scan`` (decode). A state passed in is updated in place and
-returned; the JAX functions return a new state.
+and ``wkv_scan`` (decode). On a meta tensor (the dry run's trace: shapes
+only) a prefill runs K4's chunked algorithm in plain form,
+``wkv6_chunked_ref``, whose one loop over the chunks is a few operations
+where ``wkv_chunked``'s body is some eighty. A state passed in is updated
+in place and returned; the JAX functions return a new state.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_chunked_ref
 from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref as wkv_scan
 from repro_torch.models.layers import _he, init_layernorm, layernorm
 
@@ -171,7 +175,8 @@ def time_mix(params, cfg, x, state=None):
         else:
             y, s_out = wkv_ops.wkv6(r, k, v, lw, u, start, s_out=s0)
     elif S > 1:
-        y, s_out = wkv_chunked(r, k, v, lw, u, s0)
+        chunked = wkv6_chunked_ref if x.device.type == "meta" else wkv_chunked
+        y, s_out = chunked(r, k, v, lw, u, s0)
     else:
         y, s_out = wkv_scan(r, k, v, lw, u, s0)
     y = y.reshape(B, S, d)

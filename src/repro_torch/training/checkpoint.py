@@ -13,7 +13,15 @@ that back (ROADMAP R10). The port writes the same words under the header
 ``'bfloat16'``, which ``np.load`` reads as bfloat16 wherever ``ml_dtypes``
 is imported (as under JAX), and reads either header itself by the
 manifest's dtype, from the raw 2-byte words, so it needs no
-``ml_dtypes``. ``shardings=`` becomes ``device=``: one card, no mesh.
+``ml_dtypes``.
+
+The elastic restore: with ``shardings=`` / ``opt_shardings=`` (trees of
+``parallel.sharding.NamedSharding`` on a ``DeviceMesh``) each leaf comes
+back as a DTensor at its sharding's placements, built by every rank from
+the file's full leaf sliced to its own block (no collective), so a
+checkpoint written under one mesh restores onto any other. ``local_tree``
+gives the local shards as plain tensors (a (1, 1) mesh's are the whole
+leaves). Without them, ``device=`` places whole leaves as before.
 """
 
 from __future__ import annotations
@@ -119,29 +127,94 @@ def latest_step(ckpt_dir: Path) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _local_block(full: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of ``full`` under ``sharding``'s placements: each
+    mesh dim that shards a tensor dim takes this rank's coordinate's
+    chunk of it, mesh dims in order (the major axis first)."""
+    from torch.distributed.tensor import Shard
+    mesh = sharding.mesh
+    coord = mesh.get_coordinate()
+    block = full
+    for i, p in enumerate(sharding.placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            size = block.shape[p.dim] // n
+            block = block.narrow(p.dim, coord[i] * size, size)
+    return block
+
+
+def _to_dtensor(full: torch.Tensor, sharding):
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    local = _local_block(full, sharding).contiguous().to(mesh.device_type)
+    return DTensor.from_local(local, mesh, sharding.placements,
+                              run_check=False, shape=full.shape,
+                              stride=full.stride())
+
+
 def restore_checkpoint(ckpt_dir: Path, step: int, params_tmpl,
-                       opt_tmpl=None, *, device: DeviceLike = None):
+                       opt_tmpl=None, *, device: DeviceLike = None,
+                       shardings=None, opt_shardings=None):
     """Restore into the templates' structure and dtypes (templates may
-    be meta tensors, as ``AdamW.state_shapes`` gives), on ``device``.
-    Returns (step, params, opt_state or None, extra)."""
-    dev = resolve_device(device)
+    be meta tensors, as ``param_shapes`` and ``AdamW.state_shapes`` give):
+    each leaf that ``shardings`` (params) or ``opt_shardings`` (the
+    optimizer state) lays out as a DTensor on its mesh, every other leaf
+    whole on ``device``. Returns (step, params, opt_state or None,
+    extra)."""
+    if shardings is None and opt_shardings is None:
+        dev = resolve_device(device)
+    else:          # a leaf without a sharding goes to the meshes' device
+        dev = _mesh_device(shardings, opt_shardings)
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     flat = {e["path"]: e for e in manifest["leaves"]}
 
-    def walk(t, prefix):
-        if isinstance(t, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else k)
-                    for k, v in t.items()}
-        if isinstance(t, (list, tuple)) and not hasattr(t, "_fields"):
-            return type(t)(walk(v, f"{prefix}/{i}") for i, v in enumerate(t))
-        if hasattr(t, "_fields"):
-            return type(t)(**{f: walk(getattr(t, f), f"{prefix}/{f}")
-                              for f in t._fields})
-        e = flat[prefix]
-        return _load_leaf(d / e["file"], e["dtype"]).to(device=dev,
-                                                         dtype=t.dtype)
+    def rebuild(tmpl, root, shs):
+        sh_leaves = dict(_flatten(shs, root)) if shs is not None else {}
 
-    params = walk(params_tmpl, "params")
-    opt = walk(opt_tmpl, "opt") if opt_tmpl is not None else None
+        def walk(t, prefix):
+            if isinstance(t, dict):
+                return {k: walk(v, f"{prefix}/{k}" if prefix else k)
+                        for k, v in t.items()}
+            if isinstance(t, (list, tuple)) and not hasattr(t, "_fields"):
+                return type(t)(walk(v, f"{prefix}/{i}")
+                               for i, v in enumerate(t))
+            if hasattr(t, "_fields"):
+                return type(t)(**{f: walk(getattr(t, f), f"{prefix}/{f}")
+                                  for f in t._fields})
+            e = flat[prefix]
+            full = _load_leaf(d / e["file"], e["dtype"]).to(dtype=t.dtype)
+            sh = sh_leaves.get(prefix)
+            if sh is not None:
+                return _to_dtensor(full, sh)
+            return full.to(dev)
+        return walk(tmpl, root)
+
+    params = rebuild(params_tmpl, "params", shardings)
+    opt = (rebuild(opt_tmpl, "opt", opt_shardings)
+           if opt_tmpl is not None else None)
     return manifest["step"], params, opt, manifest.get("extra", {})
+
+
+def _mesh_device(*trees) -> torch.device:
+    """The device type of the first sharding's mesh in ``trees``: where
+    a leaf without a sharding goes in a sharded restore."""
+    for tree in (t for t in trees if t is not None):
+        for _, sh in _flatten(tree):
+            return torch.device(sh.mesh.device_type)
+    raise ValueError("no sharding to place the restore on")
+
+
+def local_tree(tree):
+    """``tree`` with each DTensor leaf replaced by its local shard (a plain
+    tensor), so an engine or a train step takes a restored tree; other
+    leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(local_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local_tree(v) for v in tree)
+    return tree.to_local() if isinstance(tree, DTensor) else tree

@@ -102,3 +102,14 @@ class AdamW:
         meta = tree_map(lambda p: torch.empty(p.shape, dtype=p.dtype,
                                               device="meta"), param_shapes)
         return self.init(meta)
+
+
+def state_shardings(state, mesh):
+    """Shardings of an AdamW state tree (``AdamW.state_shapes``): the step
+    replicated, ``m``/``v``/``master`` laid out as the params they mirror
+    (``param_shardings``), as the reference's dry run lays them out."""
+    from repro_torch.parallel import sharding as SH
+    return state._replace(step=SH.NamedSharding(mesh, SH.P()),
+                          m=SH.param_shardings(state.m, mesh),
+                          v=SH.param_shardings(state.v, mesh),
+                          master=SH.param_shardings(state.master, mesh))

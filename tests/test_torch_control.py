@@ -139,6 +139,9 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print(' '.join(m for m in sys.modules if m.startswith('repro_torch')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -176,6 +179,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.training.checkpoint", "repro_torch.training.tree",
             "repro_torch.models.lm", "repro_torch.launch.steps",
             "repro_torch.launch.train"} <= mods
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun", "repro_torch.configs.shapes"} <= mods
 
 
 # control-plane modules of the simulator's planning path that the port

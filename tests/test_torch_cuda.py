@@ -1172,3 +1172,90 @@ def test_recurrent_backward_kernels_differentiate_on_cuda(cuda):
         _close(got[:3] + got[4:], ref[:3] + ref[4:], 1e-4)
         _close(got[3:4], ref[3:4], 1e-3)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_local_mesh_on_card(cuda):
+    """``make_local_mesh()``: a (1, 1) ("data", "model") mesh over cuda:0
+    with its process group of one; ``current_mesh`` is it inside ``with``
+    and None outside."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as SH
+    mesh = make_local_mesh()
+    assert mesh.device_type == "cuda"
+    assert tuple(mesh.mesh_dim_names) == ("data", "model")
+    assert tuple(mesh.mesh.shape) == (1, 1)
+    assert SH.current_mesh() is None
+    with mesh:
+        assert SH.current_mesh() is mesh
+    assert SH.current_mesh() is None
+
+
+@pytest.mark.cuda
+def test_sharded_restore_on_card_is_bit_equal(cuda, tmp_path):
+    """A SMOKE qwen2.5-3b checkpoint (params and AdamW state after one
+    step) restored through ``shardings=`` onto the local mesh: DTensors on
+    the card whose local shards are the saved leaves, bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.training import checkpoint as CKPT
+    from repro_torch.training.optimizer import AdamW, state_shardings
+    from repro_torch.training.tree import tree_leaves, tree_map
+    cfg = configs.get_smoke("qwen2.5-3b")
+    params = MDL.init_params(generator_for(cuda, 3), cfg, device=cuda)
+    opt = AdamW()
+    grads = tree_map(lambda p: p * 0.5 + 0.25, params)
+    params, state, _ = opt.update(grads, opt.init(params), params)
+    CKPT.save_checkpoint(tmp_path, 1, params, state)
+    mesh = make_local_mesh()
+    tmpl_p = MDL.param_shapes(cfg)
+    tmpl_o = opt.state_shapes(tmpl_p)
+    step, got_p, got_o, _ = CKPT.restore_checkpoint(
+        tmp_path, 1, tmpl_p, tmpl_o,
+        shardings=SH.param_shardings(tmpl_p, mesh),
+        opt_shardings=state_shardings(tmpl_o, mesh))
+    assert step == 1
+    for a, b in zip(tree_leaves((params, state.m, state.v)),
+                    tree_leaves((got_p, got_o.m, got_o.v))):
+        assert isinstance(b, DTensor) and b.to_local().is_cuda
+        assert torch.equal(a, b.to_local())
+    local = CKPT.local_tree(got_p)
+    assert all(type(t) is torch.Tensor for t in tree_leaves(local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_lower_cell_argument_bytes_match_allocated(cuda, kind):
+    """The dry run's per-device argument bytes on a (1, 1) mesh against
+    the caching allocator's growth when the same params, AdamW state or
+    cache, and batch are placed on the card: the requested bytes equal,
+    ``torch.cuda.memory_allocated`` within its rounding, 512 bytes a
+    tensor (every SMOKE tensor is under 1 MiB)."""
+    from repro_torch.configs.shapes import ShapeCell, input_specs
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.training.optimizer import AdamW
+    from repro_torch.training.tree import tree_leaves
+    cfg = configs.get_smoke("qwen2.5-3b")
+    cell = ShapeCell(f"smoke_{kind}", kind, 64, 8)
+    rec = D.lower_cell("qwen2.5-3b", cell, AbstractMesh((1, 1), ("data",
+                                                                 "model")),
+                       cfg_override=cfg)
+    params = MDL.param_shapes(cfg)
+    state = (AdamW().state_shapes(params) if kind == "train" else
+             MDL.init_cache(cfg, 8, 64, device="meta"))
+    metas = D._leaves((params, state, input_specs(cfg, cell)))
+    def now():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(),
+                torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+    a0, r0 = now()
+    held = [torch.empty(t.shape, dtype=t.dtype, device=cuda) for t in metas]
+    a1, r1 = now()
+    want = rec["memory"]["argument_bytes"]
+    assert want == sum(t.numel() * t.element_size() for t in held)
+    assert r1 - r0 == want
+    assert 0 <= (a1 - a0) - want <= 512 * len(held), (a1 - a0, want)
+    del held

@@ -243,3 +243,28 @@ def test_testbed_serves_the_new_decoder_archs_like_the_jax_sim(capsys):
     stats = tb.extras["client_stats"]
     assert {a.split("-app")[0] for a in stats} == set(DECODER_ONLY)
     assert all(st.ok > 0 for st in stats.values())
+
+
+def test_prefill_with_other_frame_counts_matches_jax(whisper):
+    """Frames other than ``encoder_seq_len`` (the dry run's prefill_32k
+    feeds S frames): the cross cache takes their length, as the JAX
+    prefill's new cache does; logits and a decode step after it within
+    ``ATOL`` of JAX's."""
+    cj, ct, pj, pt, _, _ = whisper
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, ct.vocab_size, (B, S)).astype(np.int32)
+    for T in (cj.encoder_seq_len // 2, cj.encoder_seq_len + 8):
+        frames = rng.standard_normal((B, T, cj.d_model)).astype(np.float32)
+        cache_j = JM.init_cache(cj, B, S + 2)
+        lj, cache_j = JM.prefill(pj, cj, jnp.asarray(toks[:, :S - 1]),
+                                 cache_j, jnp.asarray(frames))
+        dj, _ = JM.decode_step(pj, cj, jnp.asarray(toks[:, S - 1]), cache_j)
+        cache_t = TM.init_cache(ct, B, S + 2, device="cpu")
+        lt, cache_t = TM.prefill(pt, ct, torch.from_numpy(toks[:, :S - 1]),
+                                 cache_t, torch.from_numpy(frames))
+        dt, _ = TM.decode_step(pt, ct, torch.from_numpy(toks[:, S - 1]),
+                               cache_t)
+        assert tuple(cache_t["cross"]["k"].shape) == \
+            tuple(cache_j["cross"]["k"].shape) == \
+            (cj.num_decoder_layers, B, T, cj.num_kv_heads, cj.head_dim)
+        assert _err(lj, lt) < ATOL and _err(dj, dt) < ATOL
