@@ -214,16 +214,26 @@ and prints no result):
    (b) two ``make_train_step`` steps on SMOKE params of all ten archs,
    card against CPU (losses within 1e-5 relative, the gradients within
    1e-4 x max(1, max|g|), params moved, the forward and backward kernels
-   of the arch's layers launched by the card steps); (c) qwen2.5-3b,
-   rwkv6-3b and recurrentgemma-2b at their published configs in fp32,
-   B=2 x S=256, one after the other: the attention, recurrent-block and
-   embedding gradients through the kernels against the plain paths on
-   the card, then 3 steps, the loss finite and falling over them (the
-   last below the first); the step's host wall, device ms
-   (torch.profiler), idle share, device kernels, the port's kernels'
-   share of the device time by kernel name, tokens/s and peak memory,
-   the walls of 3 more steps and the caching allocator's retries,
-   allocations and frees a step; (d) ``train(scale="20m")`` of
+   of the arch's layers launched by the card steps); then ``cfg.remat``:
+   for one SMOKE arch per loop kind (qwen2.5-3b, recurrentgemma-2b,
+   gemma3-27b with its binding window and with a window past S,
+   rwkv6-3b, qwen3-moe-30b-a3b, whisper-medium) a gradient with remat
+   and one without through the kernels, bit-equal (the MoE arch within
+   1e-4 x max(1, max|g|)), each run's K1/K3/K4 launches exactly one
+   forward per layer, twice in a checkpointed layer (the backward's
+   recompute), and one backward; (c) qwen2.5-3b,
+   rwkv6-3b and recurrentgemma-2b at their published configs in fp32
+   (remat on, as published), B=2 x S=256, one after the other: the
+   attention, recurrent-block and embedding gradients through the
+   kernels against the plain paths on the card, then 3 steps, the loss
+   finite and falling over them (the last below the first), each
+   kernel's launches exactly those of 3 remat steps; the step's host
+   wall, device ms (torch.profiler), idle share, device kernels, the
+   port's kernels' share of the device time by kernel name, tokens/s
+   and peak memory, the walls of 3 more steps and the caching
+   allocator's retries, allocations and frees a step; for qwen2.5-3b
+   one step with ``remat=False`` beside it (the same first loss, its
+   wall, device ms and peak); (d) ``train(scale="20m")`` of
    qwen2.5-3b and of rwkv6-3b crashed at step 6 and resumed: its losses
    bit-equal to one uninterrupted run's, the last checkpoint restored on
    the CPU bit-equal to the card's.
@@ -242,7 +252,8 @@ and prints no result):
    counted); (c) the dry run's accounting held against the card, for
    qwen2.5-3b's published config on the mesh at shapes cut from SHAPES
    (``LAYOUT_CELLS``: a prefill at B=1 S=4096, a decode step at B=32
-   against a 4096 cache, a train step at B=2 S=1024): ``lower_cell``'s
+   against a 4096 cache, a train step at B=2 S=4096 with remat):
+   ``lower_cell``'s
    per-device argument bytes equal to the caching allocator's growth in
    requested bytes when the same params (drawn), AdamW state or cache,
    and batch are placed on the card, and ``torch.cuda.memory_allocated``'s
@@ -252,14 +263,23 @@ and prints no result):
    time (CUDA events around the eager call, median of 10) at or above
    max(model flops / 989 TFLOP/s, argument bytes / 3.35 TB/s), printed
    beside the trace's compute and memory terms and useful_flop_frac; and
-   the step's own peak (``max_memory_allocated`` over the run less
-   ``memory_allocated`` just before it) at or under the record's
-   ``temp_bytes``, the bound it claims; (d) ``python -m
+   the step's own peak (the allocator's peak over the run less its count
+   just before it) at or under the record's ``temp_bytes`` in requested
+   bytes, and at or under ``temp_bytes + temp_alloc_slack`` (the
+   allocator's rounding of the storages the trace holds at once) in
+   ``max_memory_allocated``'s bytes, the bounds it claims; (d) ``python -m
    repro_torch.launch.dryrun --all --no-save``, started in the background
    at the lowest CPU priority after (c), so that (c)'s times are taken on
    a quiet host, and run beside (b), must end with "33 ok, 0 failed, 7
    skipped"; each cell's line is printed. The order is (a), (c), (b),
-   (d).
+   phase 10, (d);
+10. while phase 9 (d)'s sweep runs, the example ports, each in a
+   subprocess through its own entry point on the card:
+   ``examples/{quickstart,failure_storm,site_failure_sim}_torch.py``,
+   whose output must equal their ``--device cpu`` runs' (run beside),
+   ``train_lm_torch.py --scale toy --steps 50`` (crash, resume) and,
+   alone after them, ``edge_failover_torch.py --settle 2`` (the live
+   testbed: every app recovered); each must exit 0.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel (the backward kernels as ``flash_attention_bwd``,
@@ -2928,6 +2948,17 @@ RECURRENT_BLOCKS = ("rec", "tm")
 # the device kernels of K1, K3 and K4, forward and backward, by name
 PORT_KERNEL_RE = re.compile(r"\b(?:fa_(?:tc_kernel|kernel|bwd_\w+)"
                             r"|rglru_\w+_kernel|wkv_\w+_kernel)")
+# (b): the same gradient with remat and without through the kernels, one
+# SMOKE arch per loop kind: a layer a region (qwen2.5-3b, rwkv6-3b, the
+# MoE arch), a cycle a region with a tail outside (recurrentgemma-2b,
+# gemma3-27b, whose window of 8 binds at S=24), gemma3-27b's per-layer
+# route (a window past S) and the encoder-decoder
+TRAIN_REMAT_CASES = (("qwen2.5-3b", {}), ("recurrentgemma-2b", {}),
+                     ("gemma3-27b", {}), ("gemma3-27b", {"window_size": 32}),
+                     ("rwkv6-3b", {}), ("qwen3-moe-30b-a3b", {}),
+                     ("whisper-medium", {}))
+# (c): the arch whose step is also profiled with remat=False
+TRAIN_NO_REMAT_ARCH = "qwen2.5-3b"
 # (d): ``train``'s crash and resume, for each arch
 TRAIN_RESUME = dict(scale="20m", steps=12, batch=4, seq=128, ckpt_every=4,
                     seed=SEED)
@@ -3421,6 +3452,102 @@ def phase_train_smoke():
     return launches
 
 
+def train_step_launches(cfg, seq, remat):
+    """The launches of K1, K3's gated route and K4's chunked route,
+    forward and backward, that one gradient of ``cfg`` at ``seq`` tokens
+    makes: a forward for each attention (two in an encoder-decoder's
+    decoder layer: self and cross) and recurrence of every layer, a
+    backward for each forward, and with ``remat`` the forwards of every
+    checkpointed layer again in the backward's recompute. Which layers
+    are checkpointed is stated here from the config alone, as the JAX
+    model's ``forward_features`` chooses them, not read from the port's
+    ``remat_regions``: every encoder and decoder layer; every layer of a
+    uniform attention stack (a pattern of more than one kind, all
+    ``local``/``global``) with a full cycle where no window binds at
+    ``seq`` (its merged per-layer scan); elsewhere the layers of the
+    scanned cycles, never the tail's."""
+    n = dict.fromkeys(TRAIN_ROUTES, 0)
+    bwd = {"flash_attention": "flash_attention_bwd",
+           "rglru_gated": "rglru_gated_bwd", "rwkv6_chunked": "wkv6_bwd"}
+
+    def add(route, calls, region):
+        n[route] += calls * (2 if remat and region else 1)
+        n[bwd[route]] += calls
+
+    if cfg.is_encoder_decoder:
+        add("flash_attention",
+            cfg.num_encoder_layers + 2 * cfg.num_decoder_layers, True)
+        return n
+    pattern = cfg.block_pattern
+    plen = len(pattern)
+    scanned = cfg.num_layers // plen * plen if cfg.scan_layers else 0
+    merged = (scanned > 0 and plen > 1
+              and set(pattern) <= {"local", "global"}
+              and not ("local" in pattern and cfg.window_size < seq))
+    route = {"rglru": "rglru_gated", "rwkv": "rwkv6_chunked"}
+    for i in range(cfg.num_layers):
+        add(route.get(pattern[i % plen], "flash_attention"), 1,
+            merged or i < scanned)
+    return n
+
+
+def phase_train_remat():
+    """Phase 8 (b), remat: for each of ``TRAIN_REMAT_CASES`` (SMOKE
+    params on the card, ``data.batch(0)``), one gradient with
+    ``remat=False`` and one with ``remat=True`` through the kernels, the
+    counters zeroed just before each and read just after: the gradients
+    bit-equal (the kernels repeat their bits and use no atomics; the MoE
+    arch within 1e-4 x max(1, max|g|), its dispatch's ``index_add_``),
+    and each run's launches exactly ``train_step_launches``: the forward
+    kernels twice in every checkpointed layer, the backward kernels once.
+    Returns the launches of the remat runs, summed."""
+    from repro_torch import configs
+    from repro_torch.device import generator_for
+    from repro_torch.launch.steps import batch_to, loss_and_grads
+    from repro_torch.models import model as MDL
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+    from repro_torch.training.tree import tree_leaves
+
+    total = dict.fromkeys(TRAIN_ROUTES, 0)
+    for arch, kw in TRAIN_REMAT_CASES:
+        cfg = configs.get_smoke(arch).replace(**kw)
+        data = SyntheticTokenStream(DataConfig(
+            cfg.vocab_size, TRAIN_SMOKE_B, TRAIN_SMOKE_S, seed=SEED))
+        batch = batch_to(data.batch(0, cfg), DEV)
+        params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
+        grads, got, want = {}, {}, {}
+        for remat in (False, True):
+            c = cfg.replace(remat=remat)
+            reset_counts()
+            _, _, g = loss_and_grads(c, params, batch)
+            got[remat] = read_counts(TRAIN_ROUTES)
+            want[remat] = train_step_launches(c, batch["tokens"].shape[1],
+                                              remat)
+            grads[remat] = g
+        equal = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(grads[False]), tree_leaves(grads[True])))
+        tag = f"{arch}{' ' + json.dumps(kw) if kw else ''}"
+        worst = grads_close(grads[False], grads[True], f"{tag} remat")
+        log(f"  (b) remat {tag}: gradients with and without remat "
+            f"bit-equal {equal} (within {worst:.3g} of the tolerance); "
+            f"launches without {json.dumps(got[False])}, with "
+            f"{json.dumps(got[True])}")
+        if not (equal or cfg.num_experts):
+            raise AssertionError(f"{tag}: the remat gradients are not "
+                                 "bit-equal to the gradients without")
+        for remat in (False, True):
+            if got[remat] != want[remat]:
+                raise AssertionError(f"{tag} remat={remat}: launches "
+                                     f"{got[remat]}, expected "
+                                     f"{want[remat]}")
+        if got[True] == got[False]:
+            raise AssertionError(f"{tag}: remat recomputed no kernel")
+        for k, v in got[True].items():
+            total[k] += v
+        del params, grads
+    return total
+
+
 def grad_leaves(grads):
     """{name: gradient} of the embedding table, of the attention leaves
     and of every leaf of the recurrent blocks of each layer (stacked by
@@ -3493,14 +3620,13 @@ def phase_train_full(arch):
     c = TRAIN_FULL
     cfg = configs.get_config(arch).replace(
         param_dtype="float32", activation_dtype="float32")
-    routes = train_routes(cfg)
     gc.collect()
     torch.cuda.empty_cache()
     params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
     data = SyntheticTokenStream(DataConfig(cfg.vocab_size, c["B"], c["S"],
                                            seed=SEED))
     batch = batch_to(data.batch(0, cfg), DEV)
-    _, _, g_k = loss_and_grads(cfg, params, batch)
+    g_k, grad_peak = grad_and_peak(cfg, params, batch)
     g_k = grad_leaves(g_k)
     with plain_attention(), plain_recurrence():
         _, _, g_p = loss_and_grads(cfg, params, batch)
@@ -3539,48 +3665,31 @@ def phase_train_full(arch):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    params = MDL.init_params(generator_for(DEV, SEED), cfg, device=DEV)
-    state = opt.init(params)
+    # one param tree at a time: the update is not in place
+    holder = {"p": MDL.init_params(generator_for(DEV, SEED), cfg,
+                                   device=DEV)}
+    holder["s"] = opt.init(holder["p"])
     reset_counts()
-    losses, gnorms, walls, allocs = [], [], [], []
-
-    def timed_step(params, state):
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_stats()
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        wall = (time.perf_counter() - t0) * 1e3
-        after = torch.cuda.memory_stats()
-        allocs.append({k: after.get(k, 0) - before.get(k, 0)
-                       for k in ALLOC_STATS})
-        return params, state, loss, gnorm, wall
-
-    for _ in range(c["steps"]):
-        params, state, loss, gnorm, wall = timed_step(params, state)
-        losses.append(loss)
-        gnorms.append(gnorm)
-        walls.append(wall)
+    steps = [timed_train_step(step, holder, batch)
+             for _ in range(c["steps"])]
+    losses, gnorms, walls, enqueues, allocs = map(list, zip(*steps))
     launches = read_counts(TRAIN_ROUTES)
     peak = torch.cuda.max_memory_allocated()
+
     # device time of one more step on the same batch, by torch.profiler
     # (the sum of its device kernels' times)
-    holder = {"p": params, "s": state}
-    del params, state   # one param tree less: the update is not in place
-
     def one():
         holder["p"], holder["s"], m = step(holder["p"], holder["s"], batch)
         run_losses.append(float(m["loss"]))
 
     run_losses = list(losses)
     kern = device_kernels(one, 1)
-    # more steps after the profiled one: whether the walls settle
-    settled = []
-    for _ in range(c["settle"]):
-        holder["p"], holder["s"], loss, _g, w = timed_step(holder["p"],
-                                                           holder["s"])
-        settled.append(w)
-        run_losses.append(loss)
+    # more steps after the profiled one: the warm walls
+    after = [timed_train_step(step, holder, batch)
+             for _ in range(c["settle"])]
+    run_losses += [a[0] for a in after]
+    settled = [a[2] for a in after]
+    settled_enqueue = [a[3] for a in after]
     dev_ms = sum(t for _, t, _c in kern)
     n_kern = sum(cnt for _, _t, cnt in kern)
     # the port's kernels by name: K1's forward and its backward's D pass,
@@ -3594,17 +3703,21 @@ def phase_train_full(arch):
             by_name[m.group(0)] = (ms + t, n + cnt)
     port_ms = sum(t for t, _n in by_name.values())
     wall = statistics.median(walls)
+    warm = statistics.median(settled)
     out = {"arch": arch, "losses": losses, "plain_losses": plain_losses,
            "run_losses": run_losses, "grad_norms": gnorms,
-           "wall_ms": walls, "device_ms_profiler": dev_ms,
-           "idle_share": 1 - dev_ms / wall, "device_kernels": n_kern,
+           "wall_ms": walls, "enqueue_ms": enqueues,
+           "device_ms_profiler": dev_ms,
+           "idle_share": 1 - dev_ms / wall,
+           "idle_share_settled": 1 - dev_ms / warm,
+           "device_kernels": n_kern,
            "port_kernels_ms": port_ms, "port_kernels_by_name": by_name,
            "tokens_per_s": c["B"] * c["S"] / (wall / 1e3),
-           "settled_wall_ms": settled,
-           "tokens_per_s_settled": (c["B"] * c["S"]
-                                    / (statistics.median(settled) / 1e3)),
+           "settled_wall_ms": settled, "settled_enqueue_ms": settled_enqueue,
+           "tokens_per_s_settled": c["B"] * c["S"] / (warm / 1e3),
            "allocator_by_step": allocs,
            "max_memory_allocated_bytes": peak, "launches": launches,
+           "remat": cfg.remat, "grad_peak_bytes": grad_peak,
            "grad_check_worst": dict(top),
            "top": [(k[:60], t) for k, t, _c in kern[:8]]}
     log("  " + json.dumps({"train_full": out}))
@@ -3617,10 +3730,14 @@ def phase_train_full(arch):
         f"one step), idle share {1 - dev_ms / wall:.3f}, device kernels a "
         f"step {n_kern:.0f} (the port's kernels {port_ms:.3f} ms), "
         f"{out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
-        f"{peak / 2**30:.3f} GiB; launches {json.dumps(launches)}")
+        f"{peak / 2**30:.3f} GiB (a gradient's own peak "
+        f"{grad_peak / 2**30:.3f} GiB), remat {cfg.remat}; launches "
+        f"{json.dumps(launches)}")
     log(f"  step walls {[round(w, 1) for w in walls]} ms, then after the "
         f"profiled step {[round(w, 1) for w in settled]} ms "
-        f"({out['tokens_per_s_settled']:.1f} tokens/s at their median); "
+        f"({out['tokens_per_s_settled']:.1f} tokens/s and idle share "
+        f"{out['idle_share_settled']:.3f} at their median; the host enqueued "
+        f"them in {[round(w, 1) for w in settled_enqueue]} ms); "
         f"the caching allocator a step ({', '.join(ALLOC_STATS)}): "
         + "; ".join(" ".join(str(a[k]) for k in ALLOC_STATS)
                     for a in allocs))
@@ -3640,14 +3757,192 @@ def phase_train_full(arch):
         raise AssertionError(f"{arch} full-width losses {losses}, through "
                              f"the plain paths {plain_losses}, over the run "
                              f"{run_losses}, grad norms {gnorms}")
-    idle = [r for r in routes if not launches[r]]
-    if idle:
+    want = {r: c["steps"] * n for r, n in
+            train_step_launches(cfg, c["S"], cfg.remat).items()}
+    if launches != want:
         raise AssertionError(f"{arch} full-width steps launched "
-                             f"{launches}: {idle} idle")
+                             f"{launches}, expected {want}")
     del holder
     gc.collect()
     torch.cuda.empty_cache()
+    if arch == TRAIN_NO_REMAT_ARCH:
+        out["no_remat"] = train_step_no_remat(cfg, opt, batch)
+        r = out["no_remat"]
+        log(f"  {arch} remat=False beside it: device {r['device_ms']:.3f} ms "
+            f"(torch.profiler, one step) against {dev_ms:.3f} with remat, "
+            f"{r['device_kernels']:.0f} device kernels a step against "
+            f"{n_kern:.0f}; warm step host wall (median of the "
+            f"{c['settle']} after the profiled one) {r['warm_wall_ms']:.3f} "
+            f"ms against {warm:.3f}, enqueued by the host in "
+            f"{r['warm_enqueue_ms']:.3f} ms against "
+            f"{statistics.median(settled_enqueue):.3f}, "
+            f"{r['tokens_per_s_settled']:.1f} tokens/s against "
+            f"{out['tokens_per_s_settled']:.1f}, idle share "
+            f"{r['idle_share_settled']:.3f} against "
+            f"{out['idle_share_settled']:.3f}; max_memory_allocated "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB against "
+            f"{peak / 2**30:.3f}, a gradient's own peak "
+            f"{r['grad_peak_bytes'] / 2**30:.3f} GiB against "
+            f"{grad_peak / 2**30:.3f}, loss {r['loss']} (with remat "
+            f"{losses[0]})")
+        if r["loss"] != losses[0]:
+            raise AssertionError(f"{arch}: the first step's loss is "
+                                 f"{r['loss']} without remat, {losses[0]} "
+                                 "with it")
     return out, launches
+
+
+def grad_and_peak(cfg, params, batch):
+    """``loss_and_grads``' gradients and the bytes its call allocated at
+    its peak above what was allocated before it (the gradients
+    included)."""
+    from repro_torch.launch.steps import loss_and_grads
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, grads = loss_and_grads(cfg, params, batch)
+    torch.cuda.synchronize()
+    return grads, torch.cuda.max_memory_allocated() - before
+
+
+def timed_train_step(step, holder, batch):
+    """One ``step`` on ``holder``'s params and state, updated in place:
+    (loss, grad norm, host wall ms, host enqueue ms — until ``step``
+    returned, before the loss's read waits for the card —, the caching
+    allocator's ``ALLOC_STATS`` deltas)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()
+    t0 = time.perf_counter()
+    holder["p"], holder["s"], m = step(holder["p"], holder["s"], batch)
+    enqueue = (time.perf_counter() - t0) * 1e3
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    wall = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.memory_stats()
+    return loss, gnorm, wall, enqueue, {
+        k: after.get(k, 0) - before.get(k, 0) for k in ALLOC_STATS}
+
+
+def train_step_no_remat(cfg, opt, batch):
+    """(c) with ``remat=False`` from the same params: a gradient's own
+    peak (``grad_and_peak``), then the steps of the remat run with the
+    peak reset: the first (its loss), one profiled (device ms and kernels
+    by torch.profiler), and ``TRAIN_FULL["settle"]`` warm ones (host wall
+    and enqueue ms, tokens/s and idle share at their median), with
+    ``max_memory_allocated`` over them."""
+    from repro_torch.device import generator_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as MDL
+
+    c = TRAIN_FULL
+    cfg = cfg.replace(remat=False)
+    holder = {"p": MDL.init_params(generator_for(DEV, SEED), cfg,
+                                   device=DEV)}
+    grads, grad_peak = grad_and_peak(cfg, holder["p"], batch)
+    del grads
+    step = make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    holder["s"] = opt.init(holder["p"])
+    loss = timed_train_step(step, holder, batch)[0]
+
+    def one():
+        holder["p"], holder["s"], _ = step(holder["p"], holder["s"], batch)
+
+    kern = device_kernels(one, 1)
+    dev_ms = sum(t for _, t, _c in kern)
+    after = [timed_train_step(step, holder, batch)
+             for _ in range(c["settle"])]
+    warm = statistics.median(a[2] for a in after)
+    out = {"loss": loss, "device_ms": dev_ms,
+           "device_kernels": sum(cnt for _, _t, cnt in kern),
+           "settled_wall_ms": [a[2] for a in after],
+           "settled_enqueue_ms": [a[3] for a in after], "warm_wall_ms": warm,
+           "warm_enqueue_ms": statistics.median(a[3] for a in after),
+           "tokens_per_s_settled": c["B"] * c["S"] / (warm / 1e3),
+           "idle_share_settled": 1 - dev_ms / warm,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "grad_peak_bytes": grad_peak}
+    del holder
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_host_split(arch=TRAIN_NO_REMAT_ARCH):
+    """Where a train step's host time goes, with and without remat (not
+    run by ``main``; alone: ``phase_build()`` first): ``arch`` at its
+    published config in fp32 at ``TRAIN_FULL``'s shape, two steps (the
+    first pays the allocator's growth), then one step under
+    torch.profiler, its CPU events split by thread — the caller's (the
+    forward, the loss and the update) and autograd's device thread (the
+    backward and, with remat, the recompute) — into
+    each thread's host span (first event's start to last event's end),
+    the self CPU time of its aten operations, and its kernel launches;
+    and the step's device ms. Returns {remat: {thread: ...}}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.device import generator_for
+    from repro_torch.launch.steps import batch_to, make_train_step
+    from repro_torch.models import model as MDL
+    from repro_torch.training.data import DataConfig, SyntheticTokenStream
+    from repro_torch.training.optimizer import AdamW
+
+    c = TRAIN_FULL
+    base = configs.get_config(arch).replace(
+        param_dtype="float32", activation_dtype="float32")
+    data = SyntheticTokenStream(DataConfig(base.vocab_size, c["B"], c["S"],
+                                           seed=SEED))
+    out = {}
+    for remat in (True, False):
+        cfg = base.replace(remat=remat)
+        batch = batch_to(data.batch(0, cfg), DEV)
+        opt = AdamW(lr=3e-4, warmup_steps=10, total_steps=c["steps"])
+        step = make_train_step(cfg, opt)
+        holder = {"p": MDL.init_params(generator_for(DEV, SEED), cfg,
+                                       device=DEV)}
+        holder["s"] = opt.init(holder["p"])
+        walls = [timed_train_step(step, holder, batch)[2] for _ in range(2)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            holder["p"], holder["s"], m = step(holder["p"], holder["s"],
+                                               batch)
+            float(m["loss"])
+        threads = {}
+        dev_us = 0.0
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CPU:
+                dev_us += e.self_device_time_total
+                continue
+            t = threads.setdefault(e.thread, {
+                "start": e.time_range.start, "end": e.time_range.end,
+                "aten_self_ms": 0.0, "launches": 0, "events": 0})
+            t["start"] = min(t["start"], e.time_range.start)
+            t["end"] = max(t["end"], e.time_range.end)
+            t["events"] += 1
+            if e.name.startswith("aten::"):
+                t["aten_self_ms"] += e.self_cpu_time_total / 1e3
+            if "LaunchKernel" in e.name:
+                t["launches"] += 1
+        # the caller's thread runs the step's first event
+        order = sorted(threads, key=lambda k: threads[k]["start"])
+        threads = {("caller" if i == 0 else f"thread {k}"): threads[k]
+                   for i, k in enumerate(order)}
+        for t in threads.values():
+            t["span_ms"] = (t.pop("end") - t.pop("start")) / 1e3
+        out[remat] = {"threads": threads, "device_ms": dev_us / 1e3,
+                      "walls_before_ms": walls}
+        log(f"  {arch} remat={remat}: device {dev_us / 1e3:.3f} ms, the "
+            f"walls before {[round(w, 1) for w in walls]} ms; by thread "
+            + "; ".join(f"{k}: span {t['span_ms']:.3f} ms, aten self "
+                        f"{t['aten_self_ms']:.3f} ms, {t['launches']} "
+                        f"launches, {t['events']} events"
+                        for k, t in threads.items()))
+        del holder, step, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_resume(arch, mesh=None):
@@ -3728,6 +4023,7 @@ def phase_train():
     log(f"  phase 8 (a) took {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     smoke = phase_train_smoke()
+    remat = phase_train_remat()
     log(f"  phase 8 (b) took {time.monotonic() - t0:.1f} s")
     full, resume = {}, {}
     for arch in TRAIN_FULL_ARCHS:
@@ -3743,6 +4039,8 @@ def phase_train():
         paths[name] = {
             f"train smoke steps, {len(smoke)} archs (phase 8b)":
                 sum(n[name] for n in smoke.values()),
+            f"remat gradients, {len(TRAIN_REMAT_CASES)} cases (phase 8b)":
+                remat[name],
             **{f"train {arch} full width (phase 8c)": n[name]
                for arch, n in full.items() if n[name]},
             **{f"train() {arch} crash + resume (phase 8d)": n[name]
@@ -4247,16 +4545,14 @@ LAYOUT_RESUME_ARCH = "rwkv6-3b"
 # (c): qwen2.5-3b's published config on the (1, 1) mesh, at shapes cut
 # from SHAPES to fit one card: prefill_32k's B 32 -> 1 and S 32768 ->
 # 4096, decode_32k's B 128 -> 32 and cache 32768 -> 4096, train_4k's B
-# 256 -> 2 and S 4096 -> 1024 (at S 2048 the step peaks at 66 GiB alone
-# and ran out of the card's memory after phases 4-8 had fragmented the
-# caching allocator)
+# 256 -> 2 at its own S of 4096 (with the config's remat, as the JAX
+# step: without it S 2048 alone peaked at 66 GiB)
 LAYOUT_CELLS = (("prefill_32k", "prefill", 4096, 1),
                 ("decode_32k", "decode", 4096, 32),
-                ("train_4k", "train", 1024, 2))
+                ("train_4k", "train", 4096, 2))
 LAYOUT_TIMED = 10                  # step timings, median of
-ALLOC_ROUND = 512                  # the caching allocator's block rounding
 DRYRUN_SUMMARY = "dry-run summary: 33 ok, 0 failed, 7 skipped"
-DRYRUN_WAIT_S = 400                # (d) waits at most this long after (b)
+DRYRUN_WAIT_S = 400    # (d) waits at most this long after phase 10
 
 
 def start_dryrun():
@@ -4397,13 +4693,18 @@ def phase_layout_restore(mesh):
     return paths
 
 
+def requested_bytes(stat="current"):
+    """The caching allocator's requested bytes (``current`` or ``peak``):
+    what callers asked for, before its rounding."""
+    return torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"]
+
+
 def placed_bytes(make):
     """The caching allocator's growth over ``make()``: (bytes allocated,
     bytes requested, what ``make`` made)."""
     def now():
         torch.cuda.synchronize()
-        return (torch.cuda.memory_allocated(),
-                torch.cuda.memory_stats()["requested_bytes.all.current"])
+        return torch.cuda.memory_allocated(), requested_bytes()
     a0, r0 = now()
     out = make()
     a1, r1 = now()
@@ -4411,12 +4712,12 @@ def placed_bytes(make):
 
 
 def alloc_slack(tensors):
-    """How far ``memory_allocated`` may exceed the requested bytes: each
-    block is rounded up to ``ALLOC_ROUND`` bytes, and a block over 1 MiB
-    keeps the rest of its segment when that rest is 1 MiB or less (the
-    allocator splits a large block only above that)."""
-    return sum(ALLOC_ROUND + (2**20 if t.numel() * t.element_size() > 2**20
-                              else 0) for t in tensors)
+    """How far ``memory_allocated`` may exceed the requested bytes of
+    ``tensors``: the dry run's ``block_slack`` of each (512 bytes of
+    rounding a block, and up to 1 MiB more for a block over 1 MiB, whose
+    segment's rest the allocator does not split off)."""
+    from repro_torch.launch.dryrun import block_slack
+    return sum(block_slack(t.numel() * t.element_size()) for t in tensors)
 
 
 def phase_layout_accounting(mesh):
@@ -4426,9 +4727,10 @@ def phase_layout_accounting(mesh):
     (requested bytes equal, allocated within ``alloc_slack``), and the real step's time (CUDA events
     around the eager call, median of ``LAYOUT_TIMED``) against
     max(model flops / PEAK_FLOPS, argument bytes / HBM_BW), and the step's
-    own peak bytes (the allocator's peak over the timed runs less what was
-    allocated just before them) against the record's ``temp_bytes``, which
-    claims to bound it. Returns the rows and the steps' launches."""
+    own peak (the allocator's peak over the timed runs less its count just
+    before them) against the record's bounds: at or under ``temp_bytes``
+    in requested bytes, and at or under ``temp_bytes + temp_alloc_slack``
+    in allocated bytes. Returns the rows and the steps' launches."""
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeCell
     from repro_torch.device import generator_for
@@ -4488,11 +4790,14 @@ def phase_layout_accounting(mesh):
         reset_counts()
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
+        asked_before = requested_bytes()
         torch.cuda.reset_peak_memory_stats()
         with torch.inference_mode(kind != "train"):
             ms = eager_ms(run, n=LAYOUT_TIMED, warmup=2)
         step_peak = torch.cuda.max_memory_allocated() - before
+        step_asked = requested_bytes("peak") - asked_before
         temp = rec["memory"]["temp_bytes"]
+        temp_slack = rec["memory"]["temp_alloc_slack"]
         launches[tag] = read_counts(("flash_attention", "decode_attention",
                                      "flash_attention_bwd"))
         r = rec["roofline"]
@@ -4500,7 +4805,9 @@ def phase_layout_accounting(mesh):
         row = {"argument_bytes": want, "requested_growth": asked,
                "allocated_growth": grown, "allocator_slack": slack,
                "tensors": n_t, "temp_bytes": temp,
-               "step_peak_bytes": step_peak, "measured_ms": ms,
+               "temp_alloc_slack": temp_slack,
+               "step_peak_bytes": step_peak,
+               "step_peak_requested_bytes": step_asked, "measured_ms": ms,
                "floor_ms": floor_s * 1e3, "compute_ms": r["compute_s"] * 1e3,
                "memory_ms": r["memory_s"] * 1e3,
                "useful_flop_frac": r["useful_flop_frac"],
@@ -4516,16 +4823,25 @@ def phase_layout_accounting(mesh):
             f"/ HBM), the trace's compute_s {r['compute_s'] * 1e3:.3f} ms "
             f"and memory_s {r['memory_s'] * 1e3:.3f} ms (unfused), "
             f"useful_flop_frac {r['useful_flop_frac']:.3f}; the step's "
-            f"own peak {step_peak} bytes against temp_bytes {temp}; dry run "
-            f"{t_dry:.1f} s; launches {json.dumps(launches[tag])}")
+            f"own peak {step_asked} bytes requested against temp_bytes "
+            f"{temp}, {step_peak} allocated against temp_bytes + "
+            f"temp_alloc_slack {temp + temp_slack}; dry run {t_dry:.1f} s; "
+            f"launches {json.dumps(launches[tag])}")
         if ms < floor_s * 1e3:
             raise AssertionError(f"{tag}: the step took {ms:.3f} ms, under "
                                  f"its floor {floor_s * 1e3:.3f} ms: the "
                                  "roofline is miscounted")
-        if step_peak > temp:
-            raise AssertionError(f"{tag}: the step's own peak {step_peak} "
-                                 f"bytes exceeds temp_bytes {temp}, which "
-                                 "claims to bound it")
+        # the trace reckons storages' bytes, as the allocator's requested
+        # bytes count them (the argument check above matches the two
+        # exactly); what the card holds, its allocated bytes, adds each
+        # block's rounding and the unsplit rest of a large block's segment,
+        # which the trace bounds by ``temp_alloc_slack``
+        if step_asked > temp or step_peak > temp + temp_slack:
+            raise AssertionError(
+                f"{tag}: the step's own peak, {step_asked} bytes requested "
+                f"and {step_peak} allocated, exceeds temp_bytes {temp} or "
+                f"temp_bytes + temp_alloc_slack {temp + temp_slack}, which "
+                "claim to bound it")
         if not launches[tag]["flash_attention" if kind != "decode"
                              else "decode_attention"]:
             raise AssertionError(f"{tag}: no attention kernel launched")
@@ -4543,7 +4859,7 @@ def phase_layout_dryrun(proc):
     except subprocess.TimeoutExpired:
         stop_dryrun(proc)
         raise AssertionError(f"the dry run did not end within "
-                             f"{DRYRUN_WAIT_S} s of (b)")
+                             f"{DRYRUN_WAIT_S} s of phase 10")
     for line in out.splitlines():
         if line.strip():
             log(f"  (d) {line}")
@@ -4552,36 +4868,83 @@ def phase_layout_dryrun(proc):
                              f"'{DRYRUN_SUMMARY}'")
 
 
-def phase_layout():
-    """Phase 9: (a) and (c) on a quiet host, then (d)'s sweep started in
-    the background beside (b). Returns (c)'s rows and the launches by
-    kernel and path."""
-    import torch.distributed as dist
+# ---------------------------------------------------------------------------
+# Phase 10: the example ports through their own entry points
+# ---------------------------------------------------------------------------
+
+# each example port at its smallest settings, in a process of its own
+EXAMPLE_RUNS = (("quickstart", ()), ("failure_storm", ()),
+                ("site_failure_sim", ()),
+                ("train_lm", ("--scale", "toy", "--steps", "50")),
+                ("edge_failover", ("--settle", "2")))
+# the simulator examples, run again with --device cpu: the same output
+SIM_EXAMPLES = ("quickstart", "failure_storm", "site_failure_sim")
+# the live testbed's heartbeats run on a wall clock: it runs alone, after
+# the others, which run at once
+ALONE = "edge_failover"
+# what an example's output must hold
+EXAMPLE_MARKS = {"edge_failover": ("recovery: 100%", "detected in"),
+                 "train_lm": ("resumed from step 25", "final loss:")}
+EXAMPLE_TIMEOUT_S = 300
+
+
+def start_example(name, args):
+    """``examples/<name>_torch.py`` with ``args`` in a subprocess."""
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}_torch.py"), *args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(SRC)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_example(name, args, proc, t0):
+    """Wait for ``proc``; it must exit 0 and print ``EXAMPLE_MARKS``.
+    Returns its output."""
+    out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    tail = out.strip().splitlines()[-4:]
+    log(f"  examples/{name}_torch.py {' '.join(args)}: exit "
+        f"{proc.returncode} after {time.monotonic() - t0:.1f} s; "
+        + " | ".join(tail))
+    if proc.returncode != 0:
+        raise AssertionError(f"examples/{name}_torch.py {' '.join(args)} "
+                             f"exited {proc.returncode}: {err[-3000:]}")
+    missing = [m for m in EXAMPLE_MARKS.get(name, ()) if m not in out]
+    if missing:
+        raise AssertionError(f"examples/{name}_torch.py printed no "
+                             f"{missing}: {out[-3000:]}")
+    return out
+
+
+def phase_examples():
+    """Phase 10: each of ``EXAMPLE_RUNS`` on the card in a subprocess must
+    exit 0 (and print ``EXAMPLE_MARKS``), ``ALONE`` after the others;
+    each simulator example's output must equal that of its ``--device
+    cpu`` run, started beside them."""
+    cpu_args = ("--device", "cpu")
     t0 = time.monotonic()
-    mesh = phase_local_mesh()
-    log(f"  phase 9 (a) took {time.monotonic() - t0:.1f} s")
-    t0 = time.monotonic()
-    rows, steps = phase_layout_accounting(mesh)
-    log(f"  phase 9 (c) took {time.monotonic() - t0:.1f} s")
-    dryrun = start_dryrun()
+    procs = {(name, args): start_example(name, args)
+             for name, args in EXAMPLE_RUNS if name != ALONE}
+    procs.update({(name, cpu_args): start_example(name, cpu_args)
+                  for name in SIM_EXAMPLES})
     try:
-        t0 = time.monotonic()
-        paths = phase_layout_restore(mesh)
-        log(f"  phase 9 (b) took {time.monotonic() - t0:.1f} s, beside the "
-            "sweep")
-        for tag, n in steps.items():
-            for k, v in n.items():
-                if v:
-                    paths.setdefault(k, {})[
-                        f"{LAYOUT_ARCH} {tag} (phase 9c)"] = v
-        dist.destroy_process_group()
-        t0 = time.monotonic()
-        phase_layout_dryrun(dryrun)
-        log(f"  phase 9 (d) waited {time.monotonic() - t0:.1f} s for the "
-            "sweep")
+        outs = {key: finish_example(*key, proc, t0)
+                for key, proc in procs.items()}
+        for name, args in EXAMPLE_RUNS:
+            if name == ALONE:
+                t0 = time.monotonic()
+                finish_example(name, args, start_example(name, args), t0)
     finally:
-        stop_dryrun(dryrun)
-    return rows, paths
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name in SIM_EXAMPLES:
+        card, cpu = outs[(name, ())], outs[(name, cpu_args)]
+        if card != cpu:
+            raise AssertionError(f"examples/{name}_torch.py on the card "
+                                 f"printed\n{card}\nand with --device "
+                                 f"cpu\n{cpu}")
+        log(f"  examples/{name}_torch.py: the card's {len(card.splitlines())}"
+            " lines equal the CPU's")
 
 
 def main() -> int:
@@ -4592,6 +4955,7 @@ def main() -> int:
         print(f"chip_smoke: no port package under {SRC}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    import torch.distributed as dist
     from repro_torch.kernels import _build
 
     t_start = time.monotonic()
@@ -4685,11 +5049,40 @@ def main() -> int:
     rows.update(train_rows)
     log(f"  phase 8 took {time.monotonic() - t0:.1f} s")
 
+    # phase 9: (a) and (c) on a quiet host, then (d)'s sweep in the
+    # background beside (b) and phase 10, whose subprocesses leave the
+    # host's cores to it while they start
     log("phase 9: launch and layout on the card")
     t0 = time.monotonic()
-    layout_rows, layout_paths = phase_layout()
+    mesh = phase_local_mesh()
+    layout_rows, layout_steps = phase_layout_accounting(mesh)
+    log(f"  phase 9 (a) and (c) took {time.monotonic() - t0:.1f} s")
+    dryrun = start_dryrun()
+    try:
+        t0 = time.monotonic()
+        layout_paths = phase_layout_restore(mesh)
+        log(f"  phase 9 (b) took {time.monotonic() - t0:.1f} s, beside the "
+            "sweep")
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log("phase 10: the example ports on the card, beside phase 9 "
+            "(d)'s sweep")
+        t0 = time.monotonic()
+        phase_examples()
+        log(f"  phase 10 took {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        phase_layout_dryrun(dryrun)
+        log(f"  phase 9 (d) waited {time.monotonic() - t0:.1f} s for the "
+            "sweep")
+    finally:
+        stop_dryrun(dryrun)
+    for tag, n in layout_steps.items():
+        for k, v in n.items():
+            if v:
+                layout_paths.setdefault(k, {})[
+                    f"{LAYOUT_ARCH} {tag} (phase 9c)"] = v
     log("  " + json.dumps({"layout": layout_rows}))
-    log(f"  phase 9 took {time.monotonic() - t0:.1f} s")
 
     kernels = []
     for name, (_pkg, src, replaces, headline) in KERNELS.items():

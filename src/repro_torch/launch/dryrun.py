@@ -12,9 +12,18 @@ eagerly on meta tensors, and records:
     sum of each leaf's ``shard_shape``); ``temp_bytes``: the peak live
     bytes of the trace at one data-parallel rank's batch share with the
     weights whole — an upper bound, since no tensor-parallel split is
-    applied to the activations (``temp_bytes_bound``); ``code_bytes`` 0;
+    applied to the activations (``temp_bytes_bound``); a train cell's
+    trace runs the config's remat regions, so it holds each region's
+    input and one region's recomputed activations at a time, as the
+    reference's remat'd step; ``temp_alloc_slack``: how far the caching
+    allocator's blocks may exceed those bytes (``block_slack`` of each
+    live storage, at the peak of bytes plus slack), so that
+    ``temp_bytes + temp_alloc_slack`` bounds what the card allocates;
+    ``code_bytes`` 0;
   * cost — ``global_flops`` from ``torch.utils.flop_counter``'s count of
-    the trace at the cell's global shapes (matmul-class operations), and
+    the trace at the cell's global shapes (matmul-class operations; a
+    train cell's include the backward's recomputed forward, as XLA's count
+    of a remat'd HLO does), and
     ``global_bytes``, the same trace's sum of each operation's input and
     output bytes (view operations move none): an unfused count;
   * collectives — reckoned from the layout (``hlo_analysis.
@@ -71,6 +80,10 @@ HBM_BUDGET = 85_017_493_504
 # the reference keeps 6e9 of its 16 GiB for weight-stationary decode
 # weights; the same share of the card's budget
 SERVING_WEIGHT_BUDGET = HBM_BUDGET * 6e9 / (16 * 2**30)
+# PyTorch's caching allocator rounds a block up to 512 bytes, and leaves
+# a block over 1 MiB unsplit when the rest of its segment is 1 MiB or less
+ALLOC_ROUND = 512
+ALLOC_LARGE = 2**20
 
 
 def _leaves(tree):
@@ -121,13 +134,16 @@ class _LiveBytes(TorchDispatchMode):
     are alive at once; the storages of ``exclude`` (the arguments) are
     not counted. A storage's Python object lives as long as the storage
     (PyTorch keeps it while C++ holds the storage, as autograd's saved
-    tensors do), so a weak reference to it marks the storage's end."""
+    tensors do), so a weak reference to it marks the storage's end.
+    ``alloc_peak`` is the peak of the same bytes plus each live storage's
+    ``block_slack``: a bound on the allocator's blocks for them."""
 
     def __init__(self, exclude):
         super().__init__()
         self.exclude = {t.untyped_storage()._cdata for t in exclude}
         self.live = {}                  # storage key -> its weak reference
         self.now = self.peak = 0
+        self.slack = self.alloc_peak = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -140,12 +156,21 @@ class _LiveBytes(TorchDispatchMode):
             self.live[k] = weakref.ref(st, lambda _, k=k, n=n: self._free(
                 k, n))
             self.now += n
+            self.slack += block_slack(n)
         self.peak = max(self.peak, self.now)
+        self.alloc_peak = max(self.alloc_peak, self.now + self.slack)
         return out
 
     def _free(self, key, nbytes):
         del self.live[key]
         self.now -= nbytes
+        self.slack -= block_slack(nbytes)
+
+
+def block_slack(nbytes: int) -> int:
+    """The most the caching allocator's block for a storage of ``nbytes``
+    may exceed it: its rounding, and a large block's unsplit rest."""
+    return ALLOC_ROUND + (ALLOC_LARGE if nbytes > ALLOC_LARGE else 0)
 
 
 def _local_batch(batch, batch_sh):
@@ -174,7 +199,7 @@ def _state(cfg, shape, opt, params, batch_rows):
 def _trace(step, params, state, batch, *, flops: bool, nbytes: bool,
            live: bool):
     """Run ``step`` on meta tensors under the counters asked for. Returns
-    (outputs, flops, bytes, peak live bytes)."""
+    (outputs, flops, bytes, peak live bytes, their allocated bound)."""
     fc = FlopCounterMode(display=False) if flops else None
     by = _Bytes() if nbytes else None
     lv = _LiveBytes(_leaves((params, state, batch))) if live else None
@@ -184,7 +209,8 @@ def _trace(step, params, state, batch, *, flops: bool, nbytes: bool,
                 stack.enter_context(m)
         out = step(params, state, batch)
     return (out, float(fc.get_total_flops()) if fc else 0.0,
-            float(by.total) if by else 0.0, lv.peak if lv else 0)
+            float(by.total) if by else 0.0, lv.peak if lv else 0,
+            lv.alloc_peak if lv else 0)
 
 
 def lower_cell(arch: str, shape_name: str, mesh, *, opt=None,
@@ -245,12 +271,12 @@ def lower_cell(arch: str, shape_name: str, mesh, *, opt=None,
         mem_step = _cell_step(cfg, shape, opt, mem_mb)
         mem_state = _state(cfg, shape, opt, params, mem_rows)
         mem_batch = {k: v[:mem_rows] for k, v in local.items()}
-    out, flops, hbytes, temp = _trace(
+    out, flops, hbytes, temp, alloc_peak = _trace(
         mem_step, params, mem_state, mem_batch, flops=one,
         nbytes=one and exact_costs, live=True)
     t_mem = time.time() - t0
     if costs and not one:
-        out, flops, hbytes, _ = _trace(step, params, state, batch,
+        out, flops, hbytes, _, _ = _trace(step, params, state, batch,
                                        flops=True, nbytes=exact_costs,
                                        live=False)
     elif not costs and shape.kind != "train":
@@ -280,9 +306,11 @@ def lower_cell(arch: str, shape_name: str, mesh, *, opt=None,
             "argument_bytes": arg_bytes,
             "output_bytes": out_bytes,
             "temp_bytes": temp,
+            "temp_alloc_slack": alloc_peak - temp,
             "code_bytes": 0,
             "per_device_total": arg_bytes + temp,
-            "temp_bytes_bound": "upper (weights whole, no TP split)",
+            "temp_bytes_bound": "upper (weights whole, no TP split of "
+                                "activations)",
         },
         "cost": {"global_flops": flops, "global_bytes": hbytes},
         "collectives": coll,

@@ -13,7 +13,9 @@ The param tree keeps the JAX layout — ``embed``, ``enc_layers`` and
 ``final_norm`` — so the params bridge maps it 1:1; the cache is
 ``pos`` / ``self`` {k, v} (n_dec, B, max_len, KVH, hd) / ``cross`` {k, v}
 (n_dec, B, T, KVH, hd), updated in place as ``model.py``'s is. Python
-loops over the stacks replace ``_maybe_scan``. On the card every
+loops over the stacks replace ``_maybe_scan``; with ``cfg.remat`` under
+autograd each encoder and decoder layer is one remat region, as each
+scanned body is ``jax.checkpoint``'d there. On the card every
 attention is a kernel: K1 for the encoder (non-causal), the decoder's
 self attention at prefill (causal) and every cross attention (non-causal,
 Sq = the prompt or 1 against Skv = T), K2 for the decoder's self
@@ -27,7 +29,8 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.model import _tree_map, init_stacked, unstack
+from repro_torch.models.model import (_tree_map, init_stacked, recording,
+                                      remat_call, unstack)
 
 
 def _init_enc_layer(gen, cfg, dev):
@@ -91,8 +94,10 @@ def encode(params, cfg, frame_embeds):
     """frame_embeds: (B, T, d_model) from the stub frontend."""
     x = frame_embeds.to(cfg.adtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = cfg.remat and recording(x, params)
     for p in unstack(params["enc_layers"], cfg.num_encoder_layers):
-        x = _enc_layer_fwd(p, cfg, x, positions)
+        x = (remat_call(_enc_layer_fwd, p, cfg, x, positions) if remat
+             else _enc_layer_fwd(p, cfg, x, positions))
     return L.layernorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -159,8 +164,11 @@ def forward_features(params, cfg, tokens, frame_embeds):
     enc_out = encode(params, cfg, frame_embeds)
     x = L.embed(params["embed"], tokens).to(cfg.adtype)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    remat = cfg.remat and recording(x, params)
     for p in unstack(params["dec_layers"], cfg.num_decoder_layers):
-        x = _dec_layer_fwd(p, cfg, x, positions, enc_out=enc_out)
+        x = (remat_call(_dec_layer_fwd, p, cfg, x, positions, enc_out)
+             if remat else _dec_layer_fwd(p, cfg, x, positions,
+                                          enc_out=enc_out))
     x = L.layernorm(params["final_norm"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

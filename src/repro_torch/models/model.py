@@ -19,9 +19,13 @@ recurrent states alike — is updated in place (``prefill`` and
 return that cache), which keeps one resident copy of the slot cache; the
 JAX functions return a new tree instead.
 
-JAX's ``forward`` scans gemma3-style interleaves per layer with traced
-(window, theta) when no window binds (``_merge_attention_stack``), a
-remat device with the same arithmetic as the loop over kinds here.
+With ``cfg.remat`` set, ``forward_features`` under autograd runs each of
+the JAX model's ``jax.checkpoint(..., nothing_saveable)`` regions under a
+non-reentrant ``torch.utils.checkpoint``: the backward recomputes a
+region's activations from its input instead of keeping them
+(``remat_regions`` gives the JAX granularity). JAX's per-layer scan of a
+gemma3-style interleave where no window binds (``_merge_attention_stack``)
+has the arithmetic of the loop over kinds here; only its regions differ.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import math
 from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -421,11 +426,73 @@ def forward_features(params, cfg: ModelConfig, tokens, prefix_embeds=None):
     x = _embed_inputs(params, cfg, tokens, prefix_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for kind, p_l, _ in _layers(cfg, params):
+    remat = cfg.remat and recording(x, params)
+    for group, region in remat_regions(cfg, params, x.shape[1]):
+        if remat and region:
+            x, aux = remat_call(_layer_group, cfg, group, x, aux, positions)
+        else:
+            x, aux = _layer_group(cfg, group, x, aux, positions)
+    return _final_norm(params, cfg, x), aux
+
+
+def recording(x, params) -> bool:
+    """Whether autograd records a forward of ``params`` on ``x``: grad
+    mode on and ``x`` or a param leaf requiring grad. ``x`` comes from
+    the embedding, so the leaves are walked only when that table is not
+    trained."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    flags = []
+    _tree_map(lambda t: flags.append(t.requires_grad), params)
+    return any(flags)
+
+
+def remat_call(fn, *args):
+    """``fn(*args)`` as one remat region: its activations are dropped
+    after the forward and recomputed by the backward, as
+    ``jax.checkpoint(fn, policy=nothing_saveable)``. The models draw no
+    random numbers in a forward, so no RNG state is saved per region
+    (``preserve_rng_state=False``)."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _uniform_attention(cfg) -> bool:
+    """Every kind of a pattern of more than one is plain attention (JAX's
+    ``_uniform_attention``)."""
+    return (len(cfg.block_pattern) > 1 and
+            all(k in ("local", "global") for k in cfg.block_pattern))
+
+
+def remat_regions(cfg, params, seq_len: int
+                  ) -> List[Tuple[List[Tuple[str, Dict]], bool]]:
+    """``_layers`` in stack order as the JAX model's remat regions: (a
+    list of (kind, layer params), whether it is checkpointed). A uniform
+    attention stack where no window binds at ``seq_len`` (JAX's merged
+    per-layer scan) has one region a layer, its tail's included; every
+    other stack one a ``block_pattern`` cycle, with each tail layer
+    alone and not checkpointed (JAX's ``_stack_body`` under the scan,
+    then the unrolled tail)."""
+    layers = [(kind, p_l) for kind, p_l, _ in _layers(cfg, params)]
+    binds = "local" in cfg.block_pattern and cfg.window_size < seq_len
+    if params["cycles"] and _uniform_attention(cfg) and not binds:
+        return [([layer], True) for layer in layers]
+    n_cyc = len(layers) - len(params["tail"])
+    plen = len(cfg.block_pattern)
+    return ([(layers[i:i + plen], True) for i in range(0, n_cyc, plen)]
+            + [([layer], False) for layer in layers[n_cyc:]])
+
+
+def _layer_group(cfg, group, x, aux, positions):
+    """``layer_forward`` over ``group``'s layers; the MoE aux losses added
+    to ``aux``, as JAX's scan carries them."""
+    for kind, p_l in group:
         x, a = layer_forward(p_l, cfg, kind, x, positions)
         if a is not None:
             aux = aux + a
-    return _final_norm(params, cfg, x), aux
+    return x, aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None):

@@ -147,6 +147,31 @@ def test_memory_trace_of_two_microbatches_is_exact(arch):
     assert rec["memory"]["temp_bytes"] == full > 0
 
 
+def test_live_bytes_bound_the_allocators_blocks():
+    """The trace's allocated bound adds each live storage's block slack
+    (512 bytes, and 1 MiB more above 1 MiB) at the peak of the two, and
+    a freed storage's slack goes with it; a record carries it as
+    ``temp_alloc_slack``."""
+    def step(params, state, batch):
+        big = torch.empty(2**19 + 1, device="meta")      # 2 MiB + 4 B
+        small = torch.empty(10, device="meta")
+        del big
+        return small + 1
+
+    x = torch.empty(4, device="meta")
+    peak, alloc_peak = TD._trace(step, {"x": x}, {}, {}, flops=False,
+                                 nbytes=False, live=True)[3:]
+    assert peak == 4 * (2**19 + 1) + 40
+    assert alloc_peak == peak + 2 * TD.ALLOC_ROUND + TD.ALLOC_LARGE
+    assert TD.block_slack(TD.ALLOC_LARGE) == TD.ALLOC_ROUND
+    cfg = tconfigs.get_smoke("qwen2.5-3b")
+    rec = TD.lower_cell("qwen2.5-3b", TS.ShapeCell("smoke_train", "train",
+                                                   32, 2),
+                        TMESH.AbstractMesh((1, 1), ("data", "model")),
+                        cfg_override=cfg, costs=False)
+    assert rec["memory"]["temp_alloc_slack"] >= TD.ALLOC_ROUND
+
+
 class _FakeJaxMesh:
     """What the JAX ``run_cell`` reads of a mesh (its name)."""
     def __init__(self, shape, axes):
