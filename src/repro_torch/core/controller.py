@@ -29,6 +29,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from repro_torch import trace
 from repro_torch.core.cluster import Cluster, Instance
 from repro_torch.core.datastore import DataStore
 from repro_torch.core.heartbeat import Clock, FailureDetector
@@ -566,13 +567,19 @@ class FailLiteController:
         """One planner round over `cands` against the persistent state.
 
         Proactive rounds (warm-backup planning) may use a non-realtime
-        planner; the failover hot path always gets a realtime one."""
+        planner; the failover hot path always gets a realtime one. Traced
+        as ``controller.plan`` (``epoch``: the failure epochs handled
+        before it, so a failover round's own)."""
         planner = self.planner if proactive else self.fast_planner
-        res = planner.plan(PlanRequest(
-            apps=cands, cluster=self.cluster, state=self.state,
-            primaries=self.primaries, alpha=alpha,
-            site_independence=self.site_independence,
-            now=self.clock.now()))
+        with trace.span("controller.plan", proactive=proactive,
+                        apps=len(cands), backend=self.planner_backend,
+                        epoch=len(self.epoch_records)) \
+                if trace.ON else trace.OFF:
+            res = planner.plan(PlanRequest(
+                apps=cands, cluster=self.cluster, state=self.state,
+                primaries=self.primaries, alpha=alpha,
+                site_independence=self.site_independence,
+                now=self.clock.now()))
         self._last_plan_wall = getattr(res, "wall_s", 0.0)
         self.plan_wall_s += self._last_plan_wall
         return res.assignment

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import sm_count
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
@@ -173,8 +174,14 @@ def _forward(q, k, v, causal, window, with_lse):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd)."""
-    return _forward(q, k, v, causal, window, False)[0]
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) -> (B,Sq,H,hd). Traced as
+    ``k1`` (the call's shapes and element size; the launch, not the
+    kernel's run)."""
+    with trace.span("k1", B=q.shape[0], Sq=q.shape[1], Skv=k.shape[1],
+                    H=q.shape[2], KVH=k.shape[2], hd=q.shape[3],
+                    causal=causal, window=window, elt=q.element_size()) \
+            if trace.ON else trace.OFF:
+        return _forward(q, k, v, causal, window, False)[0]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):

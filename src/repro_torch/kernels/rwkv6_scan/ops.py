@@ -27,6 +27,7 @@ import threading
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6_scan.ref import (wkv6_chunked_bwd_ref,
                                                 wkv6_ref)
@@ -135,9 +136,13 @@ def wkv6(r, k, v, lw, u, s0, *, s_out=None):
 
     When ``s_out`` is given, the final state is written into it (it may be
     ``s0`` itself) and returned. The launch is invisible to autograd:
-    ``WKV6Fn`` is the differentiable call.
+    ``WKV6Fn`` is the differentiable call. Traced as ``k4`` (the call's
+    shapes, route and element size; the launch, not the kernels' run).
     """
-    return _forward(r, k, v, lw, u, s0, s_out)[:2]
+    with trace.span("k4", B=r.shape[0], S=r.shape[1], NH=r.shape[2],
+                    hs=r.shape[3], chunked=chunked_route(r.shape[1]),
+                    elt=r.element_size()) if trace.ON else trace.OFF:
+        return _forward(r, k, v, lw, u, s0, s_out)[:2]
 
 
 def _forward(r, k, v, lw, u, s0, s_out=None):

@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, Iterator, List, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import trace
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -501,33 +502,39 @@ def prefill(params, cfg: ModelConfig, tokens, cache, prefix_embeds=None):
     cache slot 0 (a fresh cache, as the engine uses it); the recurrent
     kinds start from the state the cache holds, as in the JAX model.
     ``prefix_embeds`` (B, P, d) go before the tokens and count in
-    ``pos``; an encoder-decoder model takes its frame embeddings there."""
-    if cfg.is_encoder_decoder:
-        from repro_torch.models import encdec
-        return encdec.prefill(params, cfg, tokens, cache, prefix_embeds)
-    x = _embed_inputs(params, cfg, tokens, prefix_embeds)
-    S = x.shape[1]
-    positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
-    for kind, p_l, c_l in _layers(cfg, params, cache):
-        x, _ = layer_forward(p_l, cfg, kind, x, positions, cache=c_l)
-    logits = _unembed(params, cfg, x[:, -1:])
-    cache["pos"] += S
-    return logits[:, 0], cache
+    ``pos``; an encoder-decoder model takes its frame embeddings there.
+    Traced as ``model.prefill`` (``S``: the tokens' length, ``cfg``)."""
+    with trace.span("model.prefill", S=int(tokens.shape[1]),
+                    cfg=cfg) if trace.ON else trace.OFF:
+        if cfg.is_encoder_decoder:
+            from repro_torch.models import encdec
+            return encdec.prefill(params, cfg, tokens, cache, prefix_embeds)
+        x = _embed_inputs(params, cfg, tokens, prefix_embeds)
+        S = x.shape[1]
+        positions = cache["pos"][:, None] + torch.arange(S, device=x.device)
+        for kind, p_l, c_l in _layers(cfg, params, cache):
+            x, _ = layer_forward(p_l, cfg, kind, x, positions, cache=c_l)
+        logits = _unembed(params, cfg, x[:, -1:])
+        cache["pos"] += S
+        return logits[:, 0], cache
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache):
     """One decode step, cache updated in place. tokens: (B,) int.
-    Returns (logits (B,V), cache)."""
-    if cfg.is_encoder_decoder:
-        from repro_torch.models import encdec
-        return encdec.decode_step(params, cfg, tokens, cache)
-    pos = cache["pos"]
-    x = _embed_inputs(params, cfg, tokens[:, None])
-    for kind, p_l, c_l in _layers(cfg, params, cache):
-        x = layer_decode(p_l, cfg, kind, x, pos, c_l)
-    logits = _unembed(params, cfg, x)
-    cache["pos"] += 1
-    return logits[:, 0], cache
+    Returns (logits (B,V), cache). Traced as ``model.decode_step``
+    (``B``, ``cfg``)."""
+    with trace.span("model.decode_step", B=int(tokens.shape[0]),
+                    cfg=cfg) if trace.ON else trace.OFF:
+        if cfg.is_encoder_decoder:
+            from repro_torch.models import encdec
+            return encdec.decode_step(params, cfg, tokens, cache)
+        pos = cache["pos"]
+        x = _embed_inputs(params, cfg, tokens[:, None])
+        for kind, p_l, c_l in _layers(cfg, params, cache):
+            x = layer_decode(p_l, cfg, kind, x, pos, c_l)
+        logits = _unembed(params, cfg, x)
+        cache["pos"] += 1
+        return logits[:, 0], cache
 
 
 # -- per-slot cache views (serving engine continuous batching) -------------

@@ -29,6 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import model as MDL
 from repro_torch.models.config import ModelConfig
@@ -44,6 +45,7 @@ class Request:
     done_at: Optional[float] = None
     tokens: List[int] = field(default_factory=list)
     error: Optional[str] = None
+    admitted_ns: int = 0            # set while the tracer is on
 
     @property
     def latency(self) -> Optional[float]:
@@ -98,6 +100,13 @@ class InferenceEngine:
     # -- admission -----------------------------------------------------------
     @torch.inference_mode()
     def try_admit(self, req: Request) -> bool:
+        """Prefill ``req`` into a free slot; False if none is free. Traced
+        as ``engine.prefill.upload`` (the prompt's copy to the device, which
+        waits for the work queued before it on the stream) and
+        ``engine.prefill``, with ``engine.prefill.enqueue`` (until the
+        prefill and its cache write return) and ``engine.prefill.sync``
+        (the first token's readback); the request's ``request`` span runs
+        from here to the step that finishes it."""
         if self.cfg.is_encoder_decoder:
             raise NotImplementedError(
                 f"{self.cfg.name}: the engine serves text prompts only; an "
@@ -110,31 +119,78 @@ class InferenceEngine:
                 return False
             self.slots[slot] = req
             self.remaining[slot] = req.max_new_tokens
+        if trace.ON:
+            req.admitted_ns = trace.now()
         # single-sequence prefill into the slot (pos bookkeeping per slot)
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
-                                 device=self.device)[None, :]
-        with self._model_lock:
-            # a request starts from zero state: the slot still holds the
-            # previous request's KV and recurrent state, advanced further by
-            # every decode step it sat through empty (the JAX engine resets
-            # only pos, and its recurrent archs leak state between requests)
-            sub = MDL.cache_zero(MDL.cache_take_slot(self.cache, slot))
-            logits, sub = MDL.prefill(self.params, self.cfg, prompt, sub)
-            MDL.cache_put_slot(self.cache, slot, sub)
-            first = int(torch.argmax(logits[0]))
+        with trace.span("engine.prefill.upload", req=req.id) if trace.ON \
+                else trace.OFF:
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                     device=self.device)[None, :]
+        self._take_model_lock("req", req.id)
+        try:
+            with trace.span("engine.prefill", req=req.id,
+                            S=prompt.shape[1]) if trace.ON else trace.OFF:
+                with trace.span("engine.prefill.enqueue") if trace.ON \
+                        else trace.OFF:
+                    # a request starts from zero state: the slot still
+                    # holds the previous request's KV and recurrent state,
+                    # advanced further by every decode step it sat through
+                    # empty (the JAX engine resets only pos, and its
+                    # recurrent archs leak state between requests)
+                    sub = MDL.cache_zero(MDL.cache_take_slot(self.cache,
+                                                             slot))
+                    logits, sub = MDL.prefill(self.params, self.cfg, prompt,
+                                              sub)
+                    MDL.cache_put_slot(self.cache, slot, sub)
+                with trace.span("engine.prefill.sync") if trace.ON \
+                        else trace.OFF:
+                    first = int(torch.argmax(logits[0]))
             # the first token lands before the model lock is released: a
             # decode step in between would see the slot without a token,
             # feed it token 0 and advance its fresh state
             with self._lock:
                 req.tokens.append(first)
                 req.first_token_at = time.monotonic()
+        finally:
+            self._model_lock.release()
         return True
+
+    def _take_model_lock(self, key: str, value) -> None:
+        """Acquire ``_model_lock``; with the tracer on, the wait is an
+        ``engine.lock_wait`` span keyed by the request or the step."""
+        if not trace.ON:
+            self._model_lock.acquire()
+            return
+        t0 = trace.now()
+        self._model_lock.acquire()
+        trace.record("engine.lock_wait", t0, trace.now(), **{key: value})
+
+    def _trace_active(self, active: List[int]) -> List[int]:
+        """The contexts of the slots a step decodes; each request it
+        decodes for the first time ends its ``engine.first_decode_wait``
+        span, from its first token to now, which holds the wait for the
+        server's serve thread and for this step's lock. Call under
+        ``_lock``."""
+        t = trace.now()
+        for i in active:
+            r = self.slots[i]
+            if len(r.tokens) == 1:
+                trace.record("engine.first_decode_wait",
+                             trace.ns(r.first_token_at), t, req=r.id)
+        return [len(self.slots[i].prompt) + len(self.slots[i].tokens)
+                for i in active]
 
     # -- decode ---------------------------------------------------------------
     @torch.inference_mode()
     def step(self) -> List[Request]:
-        """One decode step for all active slots; returns finished reqs."""
-        with self._model_lock:
+        """One decode step for all active slots; returns finished reqs.
+        Traced as ``engine.decode`` (its slots and their contexts), with
+        ``engine.decode.upload`` (the last tokens' copy to the device,
+        which waits for the work queued before it on the stream),
+        ``engine.decode.enqueue`` (until ``decode_step`` and the argmax
+        return) and ``engine.decode.sync`` (the tokens' readback)."""
+        self._take_model_lock("step", self.steps)
+        try:
             with self._lock:
                 active = [i for i, r in enumerate(self.slots)
                           if r is not None and r.tokens]
@@ -142,11 +198,26 @@ class InferenceEngine:
                     return []
                 last = [r.tokens[-1] if r is not None and r.tokens else 0
                         for r in self.slots]
-            tok = torch.tensor(last, dtype=torch.int32, device=self.device)
-            logits, _ = MDL.decode_step(self.params, self.cfg, tok,
-                                        self.cache)
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                ctx = self._trace_active(active) if trace.ON else None
+            with trace.span("engine.decode", slots=len(active),
+                            contexts=ctx) if trace.ON else trace.OFF:
+                with trace.span("engine.decode.upload") if trace.ON \
+                        else trace.OFF:
+                    tok = torch.tensor(last, dtype=torch.int32,
+                                       device=self.device)
+                with trace.span("engine.decode.enqueue") if trace.ON \
+                        else trace.OFF:
+                    logits, _ = MDL.decode_step(self.params, self.cfg, tok,
+                                                self.cache)
+                    nxt = torch.argmax(logits, dim=-1)
+                with trace.span("engine.decode.sync") if trace.ON \
+                        else trace.OFF:
+                    nxt = nxt.cpu().numpy()
             self.steps += 1
+            if trace.ON:
+                trace.count("engine.decode_tokens", len(active))
+        finally:
+            self._model_lock.release()
         finished = []
         with self._lock:
             for i in active:
@@ -155,6 +226,9 @@ class InferenceEngine:
                 self.remaining[i] -= 1
                 if self.remaining[i] <= 0:
                     req.done_at = time.monotonic()
+                    if trace.ON and req.admitted_ns:
+                        trace.record("request", req.admitted_ns,
+                                     trace.ns(req.done_at), req=req.id)
                     finished.append(req)
                     self.slots[i] = None
         return finished

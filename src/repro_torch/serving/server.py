@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.heartbeat import FailureDetector
 from repro_torch.core.variants import Application, Variant
 from repro_torch.device import DeviceLike, generator_for, resolve_device
@@ -158,14 +159,17 @@ class WorkerServer:
         if not self.alive:
             raise WorkerDown(f"{self.id} is down")
         t0 = time.monotonic()
-        params = draw_params(variant, self.device)
-        eng = InferenceEngine(variant.config, params,
-                              batch_slots=self.batch_slots,
-                              max_len=self.max_len, device=self.device)
+        with trace.span("load.draw") if trace.ON else trace.OFF:
+            params = draw_params(variant, self.device)
+            eng = InferenceEngine(variant.config, params,
+                                  batch_slots=self.batch_slots,
+                                  max_len=self.max_len, device=self.device)
         if warm:
-            eng.warmup()
+            with trace.span("load.warmup") if trace.ON else trace.OFF:
+                eng.warmup()
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with trace.span("load.sync") if trace.ON else trace.OFF:
+                torch.cuda.synchronize(self.device)
         with self._lock:
             if not self.alive:
                 raise WorkerDown(f"{self.id} died during load")

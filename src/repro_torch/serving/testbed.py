@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.core.cluster import Cluster, Server
 from repro_torch.core.controller import (FailLiteController, LoadExecutor,
                                          RecoveryRecord)
@@ -176,32 +177,48 @@ class TestbedExecutor(LoadExecutor):
         ticket = LoadTicket()
 
         def work():
-            t0 = time.monotonic()       # before the lock: queue_s must
-            with self._locks[server_id]:  # include the channel wait
-                sleep_s, source = self._fetch_sleep(variant, server_id)
-                if sleep_s > 0:
-                    time.sleep(sleep_s)
-                if (self.shard_plane is not None
-                        and self.shard_plane.is_slice(variant.name)):
-                    wall = self.shard_plane.materialize_slice(
-                        app, variant, server_id)
-                else:
-                    wall = self.workers[server_id].load(app, variant)
-                ticket.source = source
-                ticket.fetch_s = sleep_s
-                ticket.warmup_s = wall
-                ticket.queue_s = time.monotonic() - t0 - sleep_s - wall
-                ticket.done = True
-                if self.registry is not None:
-                    # Fig. 2b feedback: the measured wall time
-                    # calibrates the shared load-cost model
-                    self.registry.calibration.observe(
-                        variant, source, sleep_s + wall)
-                    self.registry.stage(variant.name, server_id)
+            with trace.span("load", kind="cold", variant=variant.name,
+                            server=server_id) if trace.ON else trace.OFF:
+                t0 = time.monotonic()       # before the lock: queue_s
+                self._take_channel(server_id)  # includes the channel wait
+                try:
+                    sleep_s, source = self._fetch_sleep(variant, server_id)
+                    if sleep_s > 0:
+                        with trace.span("load.fetch") if trace.ON \
+                                else trace.OFF:
+                            time.sleep(sleep_s)
+                    if (self.shard_plane is not None
+                            and self.shard_plane.is_slice(variant.name)):
+                        wall = self.shard_plane.materialize_slice(
+                            app, variant, server_id)
+                    else:
+                        wall = self.workers[server_id].load(app, variant)
+                    ticket.source = source
+                    ticket.fetch_s = sleep_s
+                    ticket.warmup_s = wall
+                    ticket.queue_s = time.monotonic() - t0 - sleep_s - wall
+                    ticket.done = True
+                    if self.registry is not None:
+                        # Fig. 2b feedback: the measured wall time
+                        # calibrates the shared load-cost model
+                        self.registry.calibration.observe(
+                            variant, source, sleep_s + wall)
+                        self.registry.stage(variant.name, server_id)
+                finally:
+                    self._locks[server_id].release()
             with self.ctl_lock:
                 on_ready(time.monotonic())
         self._spawn(work, f"load {variant.name} on {server_id}")
         return ticket
+
+    def _take_channel(self, server_id: str) -> None:
+        """Acquire the server's load channel; with the tracer on, the wait
+        is a ``load.queue`` span."""
+        if not trace.ON:
+            self._locks[server_id].acquire()
+            return
+        with trace.span("load.queue"):
+            self._locks[server_id].acquire()
 
     def activate(self, app, variant, server_id):
         w = self.workers[server_id]
@@ -212,9 +229,14 @@ class TestbedExecutor(LoadExecutor):
         """Warm backup planned: load it in the background so a later
         `activate` finds the engine resident."""
         def work():
-            with self._locks[server_id]:
-                if not self.workers[server_id].has(variant.name):
-                    self.workers[server_id].load(app, variant)
+            with trace.span("load", kind="warm", variant=variant.name,
+                            server=server_id) if trace.ON else trace.OFF:
+                self._take_channel(server_id)
+                try:
+                    if not self.workers[server_id].has(variant.name):
+                        self.workers[server_id].load(app, variant)
+                finally:
+                    self._locks[server_id].release()
             if self.registry is not None:
                 self.registry.stage(variant.name, server_id)
         self._spawn(work, f"warm {variant.name} on {server_id}")
@@ -482,7 +504,10 @@ class MiniTestbed:
         self._spike_factor: Dict[str, float] = {}
         self._kill_times: Dict[str, float] = {}
         self._injection_seq = 0
-        self._detect_latency: Optional[float] = None
+        # (server, kill time, verdict time) of each declared failure, a
+        # sweep's in kill order: the first is the first failure's
+        # detection latency, and each is a failover.detect span
+        self._detections: List[tuple] = []
         self._client_threads: List[threading.Thread] = []
         self._aux_threads: List[threading.Thread] = []
         self._timers: List[threading.Timer] = []
@@ -758,11 +783,17 @@ class MiniTestbed:
             if not newly:
                 continue
             now = time.monotonic()
-            t_fail = min(self._kill_times.get(sid, now) for sid in newly)
-            if self._detect_latency is None:
-                self._detect_latency = now - t_fail
+            found = sorted((self._kill_times.get(sid, now), sid)
+                           for sid in newly)
+            self._detections += [(sid, t, now) for t, sid in found]
+            t_fail = found[0][0]
             with self._ctl_lock:
+                epoch = self.controller.epoch
                 self.controller.handle_failures(newly, t_fail)
+            if trace.ON:
+                for sid, t, verdict in self._detections[-len(found):]:
+                    trace.record("failover.detect", trace.ns(t),
+                                 trace.ns(verdict), server=sid, epoch=epoch)
             self._sync_backups()
 
     def _reprotect_loop(self, every: float):
@@ -971,9 +1002,9 @@ class MiniTestbed:
             # source, calibrated from the REAL loads this run executed
             # (feed into a sim spec to price loads identically there)
             "load_calibration": self.registry.calibration.to_dict(),
-            "detect_latency_s": (self._detect_latency
-                                 if self._detect_latency is not None
-                                 else math.nan),
+            "detect_latency_s": (self._detections[0][2]
+                                 - self._detections[0][1]
+                                 if self._detections else math.nan),
             # the summary's windows carry the back-filled
             # t_first_served, so per-app downtime is the true
             # client-observed gap, not just the route outage
